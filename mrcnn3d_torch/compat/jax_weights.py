@@ -1,0 +1,135 @@
+"""JAX variables -> port state_dict (the weight bridge).
+
+Takes the JAX package's `{"params", "batch_stats"}` tree as nested dicts
+of numpy arrays and returns the port's state_dict under the reference
+mmdet names.  Each transform is the inverse of one in
+`mrcnn3d/compat/torch_convert.py`:
+
+  flax conv kernel (kd, kh, kw, I, O)     -> torch (O, I, kd, kh, kw)
+  flax deconv kernel (kd, kh, kw, I, O),
+    spatially flipped                     -> torch (I, O, kd, kh, kw)
+  flax dense kernel (in, out)             -> torch (out, in)
+  first fc after the RoI flatten: input
+    order D*H*W*C                         -> C*D*H*W
+  FrozenBatchNorm scale / bias / mean / var
+                                          -> weight / bias / running_*
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _conv(w):
+    return np.transpose(np.asarray(w), (4, 3, 0, 1, 2))
+
+
+def _deconv(w):
+    w = np.asarray(w)[::-1, ::-1, ::-1]
+    return np.transpose(w, (3, 4, 0, 1, 2))
+
+
+def _fc(w):
+    return np.transpose(np.asarray(w))
+
+
+def _fc0(w, roi_shape):
+    """(D*H*W*C, out) -> (out, C*D*H*W)."""
+    w = np.asarray(w)
+    d, h, ww = roi_shape
+    out = w.shape[1]
+    c = w.shape[0] // (d * h * ww)
+    w = np.transpose(w).reshape(out, d, h, ww, c)
+    return np.transpose(w, (0, 4, 1, 2, 3)).reshape(out, -1)
+
+
+def state_dict_from_jax(variables, roi_shape=(3, 7, 7)):
+    """variables: {"params": ..., "batch_stats": ...} nested dicts.
+
+    roi_shape: the bbox RoIAlign output (D, H, W), which sets the order
+    of the first fc's input.  Returns {name: torch.Tensor}.
+    """
+    params = variables["params"]
+    stats = variables.get("batch_stats", {})
+    sd = {}
+
+    def put(name, arr):
+        sd[name] = torch.from_numpy(np.array(arr, np.float32))
+
+    def conv(src, dst, bias=False):
+        put(f"{dst}.weight", _conv(src["kernel"]))
+        if bias:
+            put(f"{dst}.bias", src["bias"])
+
+    def bn(p, s, dst):
+        put(f"{dst}.weight", p["scale"])
+        put(f"{dst}.bias", p["bias"])
+        put(f"{dst}.running_mean", s["mean"])
+        put(f"{dst}.running_var", s["var"])
+
+    bp, bs = params["backbone"], stats["backbone"]
+    conv(bp["conv1"], "backbone.conv1")
+    bn(bp["bn1"], bs["bn1"], "backbone.bn1")
+    for name in bp:
+        if not name.startswith("layer"):
+            continue
+        li, bi = name[len("layer"):].split("_")
+        dst = f"backbone.layer{li}.{bi}"
+        p, s = bp[name], bs[name]
+        for n in (1, 2, 3):
+            conv(p[f"conv{n}"], f"{dst}.conv{n}")
+            bn(p[f"bn{n}"], s[f"bn{n}"], f"{dst}.bn{n}")
+        if "downsample_conv" in p:
+            conv(p["downsample_conv"], f"{dst}.downsample.0")
+            bn(p["downsample_bn"], s["downsample_bn"], f"{dst}.downsample.1")
+
+    neck = params["neck"]
+    i = 0
+    while f"lateral_{i}" in neck:
+        conv(neck[f"lateral_{i}"], f"neck.lateral_convs.{i}.conv", True)
+        conv(neck[f"fpn_{i}"], f"neck.fpn_convs.{i}.conv", True)
+        i += 1
+
+    s = 0
+    while f"rpn_head_{s}" in params:
+        dst = "rpn_head" if s == 0 else f"rpn_head_{s + 1}"
+        for part in ("rpn_conv", "rpn_cls", "rpn_reg"):
+            conv(params[f"rpn_head_{s}"][part], f"{dst}.{part}", True)
+        s += 1
+
+    def fc_head(src, dst):
+        i = 0
+        while f"shared_fc_{i}" in src:
+            fc = src[f"shared_fc_{i}"]
+            kernel = fc["kernel"]
+            put(
+                f"{dst}.shared_fcs.{i}.weight",
+                _fc0(kernel, roi_shape) if i == 0 else _fc(kernel),
+            )
+            put(f"{dst}.shared_fcs.{i}.bias", fc["bias"])
+            i += 1
+        for name in ("fc_cls", "fc_reg"):
+            if name in src:
+                put(f"{dst}.{name}.weight", _fc(src[name]["kernel"]))
+                put(f"{dst}.{name}.bias", src[name]["bias"])
+
+    def mask_head(src, dst):
+        i = 0
+        while f"conv_{i}" in src:
+            conv(src[f"conv_{i}"], f"{dst}.convs.{i}.conv", True)
+            i += 1
+        put(f"{dst}.upsample.weight", _deconv(src["upsample"]["kernel"]))
+        put(f"{dst}.upsample.bias", src["upsample"]["bias"])
+        conv(src["conv_logits"], f"{dst}.conv_logits", True)
+
+    for s in range(2):
+        suffix = "" if s == 0 else "_2"
+        if f"bbox_head_{s}" in params:
+            fc_head(params[f"bbox_head_{s}"], f"bbox_head{suffix}")
+        if f"mask_head_{s}" in params:
+            mask_head(params[f"mask_head_{s}"], f"mask_head{suffix}")
+    if "refinement_head" in params:
+        fc_head(params["refinement_head"], "refinement_head")
+    if "refinement_mask_head" in params:
+        mask_head(params["refinement_mask_head"], "refinement_mask_head")
+    return sd

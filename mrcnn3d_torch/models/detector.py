@@ -1,0 +1,110 @@
+"""Two-scale 3-D Mask R-CNN module (NCDHW).
+
+Counterpart of `mrcnn3d/models/detector.py` for the flagship flags
+(reference two_stage_3d_2scales.py:22-89): a shared backbone + FPN, one
+RPN head per scale, a bbox head and a mask head (one shared across the
+scales, or one per scale when `share_heads` is False), the refinement
+head and the refinement mask head.  Module names are the reference
+mmdet state_dict names (`rpn_head`, `rpn_head_2`, `bbox_head`, ...).
+
+The module owns the parameters only; proposal decoding, RoIAlign, NMS
+and the stage logic live in `detectors/pipeline.py`.  Features run in
+`channels_last_3d` storage, so a level permuted to (B, D, H, W, C) is a
+view that the RoIAlign kernel reads channel-contiguously.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from .fpn3d import FPN3D
+from .heads import (
+    FCNMaskHead3D,
+    RPNHead3D,
+    SharedFCBBoxHead3D,
+    SharedFCBBoxHead3DRefinement,
+)
+from .resnet3d import ResNet3D
+
+
+def _scale_name(base, s):
+    return base if s == 0 else f"{base}_{s + 1}"
+
+
+class Detector3D(nn.Module):
+    def __init__(
+        self,
+        depth=50,
+        base_width=16,
+        fpn_channels=64,
+        num_outs=5,
+        num_classes=2,
+        num_anchors=1,
+        num_scales=2,
+        share_heads=True,
+        with_refinement=True,
+        with_refinement_mask=True,
+        fc_out_channels=1024,
+        mask_convs=4,
+        roi_size=7,
+        roi_size_depth=3,
+    ):
+        super().__init__()
+        self.num_classes = num_classes
+        self.num_scales = num_scales
+        self.share_heads = share_heads
+        self.with_refinement = with_refinement
+        self.with_refinement_mask = with_refinement_mask
+        self.backbone = ResNet3D(depth=depth, base_width=base_width)
+        self.neck = FPN3D(self.backbone.out_channels, fpn_channels, num_outs)
+        for s in range(num_scales):
+            setattr(self, _scale_name("rpn_head", s),
+                    RPNHead3D(fpn_channels, num_anchors))
+        roi_features = fpn_channels * roi_size_depth * roi_size * roi_size
+        for s in range(1 if share_heads else num_scales):
+            setattr(
+                self,
+                _scale_name("bbox_head", s),
+                SharedFCBBoxHead3D(roi_features, fc_out_channels, num_classes),
+            )
+            setattr(
+                self,
+                _scale_name("mask_head", s),
+                FCNMaskHead3D(fpn_channels, num_classes, mask_convs),
+            )
+        if with_refinement:
+            self.refinement_head = SharedFCBBoxHead3DRefinement(
+                roi_features, fc_out_channels, num_classes
+            )
+        if with_refinement_mask:
+            self.refinement_mask_head = FCNMaskHead3D(
+                fpn_channels, num_classes, mask_convs
+            )
+
+    def _head(self, base, scale):
+        return getattr(self, _scale_name(base, 0 if self.share_heads else scale))
+
+    def extract_feat(self, x):
+        """(B, 3, D, H, W) -> list of FPN levels (B, C, d, h, w)."""
+        x = x.contiguous(memory_format=torch.channels_last_3d)
+        return self.neck(self.backbone(x))
+
+    def rpn(self, feats, scale=0):
+        head = getattr(self, _scale_name("rpn_head", scale))
+        return [head(f) for f in feats]
+
+    def bbox_forward(self, roi_feats, scale=0):
+        return self._head("bbox_head", scale)(roi_feats)
+
+    def refinement_forward(self, roi_feats):
+        return self.refinement_head(roi_feats)
+
+    def mask_forward(self, roi_feats, scale=0):
+        return self._head("mask_head", scale)(roi_feats)
+
+    def refinement_mask_forward(self, roi_feats):
+        return self.refinement_mask_head(roi_feats)
+
+    def featmap_sizes(self, shape):
+        """FPN level (d, h, w) sizes for an input volume of (D, H, W)."""
+        return self.neck.featmap_sizes(self.backbone.featmap_sizes(shape))

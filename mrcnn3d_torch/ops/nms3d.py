@@ -1,0 +1,167 @@
+"""Greedy hard 3-D NMS: the K1 kernel wrapper and its plain version.
+
+Semantics of `mrcnn3d/ops/nms3d.py:nms_3d_mask` (reference
+nms_kernel.cu devIoU3d + the host scan): boxes sorted by score
+descending with invalid rows last (a stable sort, as JAX's argsort),
+then a greedy scan in which an earlier kept box suppresses a later box
+whose symmetric volume IoU (+1 extents) exceeds the threshold.
+
+The sorting and un-permuting are torch ops; the scan over the sorted
+rows is `greedy_scan`, which launches `csrc/nms3d.cu` for CUDA tensors
+(`greedy_scan_cuda`, one launch for many independent problems) and runs
+`greedy_scan_plain` for CPU tensors.  `launches` counts the kernel
+launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import itertools
+
+import torch
+
+from . import _cuda
+from .box3d import bbox_overlaps_3d
+
+launches = 0
+
+_TILE = 64
+
+
+def sort_desc(x, dim=-1):
+    """Stable descending sort: ties keep the lower index first, as JAX's
+    argsort(-x) and lax.top_k do.  Returns (values, indices)."""
+    return torch.sort(x, dim=dim, descending=True, stable=True)
+
+
+def greedy_scan_plain(sboxes, svalid, counts, iou_thr):
+    """Plain version of the kernel: per segment, the IoU matrix of the
+    sorted boxes, then the greedy scan row by row.
+
+    sboxes (T, 6) float32 and svalid (T,) bool, sorted within each
+    segment; counts: segment lengths summing to T.  Returns keep (T,)
+    bool per sorted row, on the input's device.
+    """
+    keep = []
+    start = 0
+    for n in counts:
+        boxes = sboxes[start:start + n]
+        sup = (bbox_overlaps_3d(boxes, boxes) > iou_thr).triu(diagonal=1)
+        sup = sup.cpu()
+        alive = svalid[start:start + n].cpu().clone()
+        for i in range(n):
+            if alive[i]:
+                alive &= ~sup[i]
+        keep.append(alive)
+        start += n
+    return torch.cat(keep).to(sboxes.device)
+
+
+def greedy_scan_cuda(sboxes, svalid, counts, iou_thr):
+    """K1: the same scan as `greedy_scan_plain`, one kernel launch for
+    every segment."""
+    global launches
+    if not (sboxes.is_cuda and svalid.is_cuda):
+        raise ValueError("greedy_scan_cuda takes CUDA tensors")
+    total = sum(counts)
+    if sboxes.shape != (total, 6) or svalid.shape != (total,):
+        raise ValueError(
+            f"boxes {tuple(sboxes.shape)} / valid {tuple(svalid.shape)} do "
+            f"not match {total} rows"
+        )
+    if sboxes.dtype != torch.float32 or not sboxes.is_contiguous():
+        raise ValueError("boxes must be contiguous float32")
+    if total == 0:
+        return torch.zeros(0, dtype=torch.bool, device=sboxes.device)
+    dev = sboxes.device
+    words = [(n + _TILE - 1) // _TILE for n in counts]
+    starts = [0, *itertools.accumulate(counts)][:-1]
+    offs = [0, *itertools.accumulate(n * w for n, w in zip(counts, words))]
+    max_count = max(counts)
+    if (max_count + _TILE - 1) // _TILE * 8 > 227 * 1024:
+        raise ValueError(f"segment of {max_count} boxes exceeds shared memory")
+    meta = torch.tensor(starts + list(counts), dtype=torch.int32).to(dev)
+    mask_off = torch.tensor(offs[:-1], dtype=torch.int64).to(dev)
+    mask = torch.empty(max(offs[-1], 1), dtype=torch.int64, device=dev)
+    keep = torch.empty(total, dtype=torch.uint8, device=dev)
+    valid_u8 = svalid.to(torch.uint8).contiguous()
+    fn = _cuda.load("nms3d").mrcnn3d_nms3d
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 7 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    nseg = len(counts)
+    status = fn(
+        sboxes.data_ptr(), valid_u8.data_ptr(), meta.data_ptr(),
+        meta.data_ptr() + 4 * nseg, mask_off.data_ptr(), mask.data_ptr(),
+        keep.data_ptr(), nseg, max_count, float(iou_thr),
+        _cuda.stream_ptr(dev),
+    )
+    _cuda.check(status, "nms3d")
+    launches += 1
+    return keep.bool()
+
+
+def greedy_scan(sboxes, svalid, counts, iou_thr):
+    """K1 for CUDA tensors, the plain version for CPU tensors."""
+    if sboxes.is_cuda:
+        return greedy_scan_cuda(sboxes, svalid, counts, iou_thr)
+    return greedy_scan_plain(sboxes, svalid, counts, iou_thr)
+
+
+def segment_order(scores, valid, counts):
+    """Permutation that sorts each segment by score, descending and
+    stable, invalid rows last; segments stay in place."""
+    dev = scores.device
+    seg = torch.repeat_interleave(
+        torch.arange(len(counts), device=dev),
+        torch.tensor(counts, device=dev),
+        output_size=scores.shape[0],
+    )
+    neg_inf = torch.tensor(float("-inf"), dtype=scores.dtype, device=dev)
+    _, order = sort_desc(torch.where(valid, scores, neg_inf))
+    # group by segment, keeping the score order inside each (stable)
+    return order[torch.sort(seg[order], stable=True).indices]
+
+
+def nms_3d_mask_segments(boxes, scores, valid, counts, iou_thr):
+    """Independent NMS problems laid end to end, in one scan.
+
+    boxes (T, 6), scores (T,), valid (T,) bool; counts: python ints,
+    the segment lengths, summing to T.  Returns keep (T,) bool in input
+    order.
+    """
+    order = segment_order(scores, valid, counts)
+    sboxes = boxes[order].float().contiguous()
+    keep_sorted = greedy_scan(sboxes, valid[order], counts, iou_thr)
+    keep = torch.zeros_like(valid)
+    keep[order] = keep_sorted
+    return keep
+
+
+def nms_3d_mask(boxes, scores, valid, iou_thr):
+    """One problem: boxes (K, 6), scores (K,), valid (K,) -> keep (K,)."""
+    return nms_3d_mask_segments(
+        boxes, scores, valid, [boxes.shape[0]], iou_thr
+    )
+
+
+def nms_3d(boxes, scores, valid, iou_thr, max_out):
+    """Survivors in score order, padded: (boxes (max_out, 6), scores
+    (max_out,) with -inf padding, valid (max_out,))."""
+    keep = nms_3d_mask(boxes, scores, valid, iou_thr)
+    return top_kept(boxes, scores, keep, max_out)
+
+
+def top_kept(boxes, scores, keep, max_out):
+    """The `max_out` best kept rows along the last row axis: boxes
+    (..., K, 6), scores/keep (..., K).  Padding rows have score -inf and
+    zero boxes."""
+    neg_inf = torch.tensor(float("-inf"), dtype=scores.dtype,
+                           device=scores.device)
+    top_s, top_i = sort_desc(torch.where(keep, scores, neg_inf))
+    top_s, top_i = top_s[..., :max_out], top_i[..., :max_out]
+    out_valid = top_s > neg_inf
+    out_boxes = torch.gather(
+        boxes, -2, top_i[..., None].expand(*top_i.shape, 6)
+    )
+    out_boxes = torch.where(out_valid[..., None], out_boxes, 0.0)
+    return out_boxes, top_s, out_valid

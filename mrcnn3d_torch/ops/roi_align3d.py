@@ -1,0 +1,231 @@
+"""Multi-level RoIAlign3D: the K2 kernel wrapper and its plain version.
+
+Semantics of `mrcnn3d/ops/roi_align3d.py:multi_level_roi_align_3d`
+(reference roi_align_kernel.cu ROIAlignForward3D and
+bilinear_interpolate_3d, level choice of single_level.py:73-81):
+
+  * roi_start = coord * scale, roi_end = (coord + 1) * scale (+1 extent),
+    extents clamped to >= 0, bin = extent / pooled;
+  * `sample_num` samples per bin per axis at
+    start + p*bin + (i + .5) * bin / sample_num, averaged;
+  * trilinear interpolation with the CUDA edge rules: a coordinate
+    below -1 or above dim contributes 0, coordinates <= 0 clamp to 0,
+    a low index >= dim-1 collapses onto the edge voxel;
+  * separate scales for xy and depth; each roi reads one FPN level.
+
+`multi_level_roi_align_3d` takes NCDHW levels, views them as
+(B, D, H, W, C) (free for the channels_last_3d features the detector
+produces) and returns (N, C, out_d, out, out).  For CUDA tensors it
+launches `csrc/roi_align3d.cu` once for all levels (`roi_align_3d_cuda`,
+counted in `launches`); for CPU tensors it runs `roi_align_3d_plain`.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _cuda
+
+launches = 0
+
+# bytes of float32 work space the plain version allows per roi chunk
+_PLAIN_CHUNK_BYTES = 1 << 28
+
+
+def map_roi_levels(rois, num_levels, finest_scale=56):
+    """Per-roi FPN level: floor(log2(sqrt(w*h*d) / finest + 1e-6)),
+    clamped to [0, num_levels - 1]."""
+    scale = torch.sqrt(
+        (rois[:, 3] - rois[:, 1] + 1)
+        * (rois[:, 4] - rois[:, 2] + 1)
+        * (rois[:, 6] - rois[:, 5] + 1)
+    )
+    target = torch.floor(torch.log2(scale / finest_scale + 1e-6))
+    # a negative extent makes the root NaN; XLA converts NaN to level 0
+    target = torch.nan_to_num(target, nan=0.0)
+    return target.clamp(0, num_levels - 1).to(torch.int32)
+
+
+def _axis_samples(lo, ln, pooled, sample_num):
+    """(N,) origin and extent -> (N, pooled * sample_num) coordinates."""
+    dev = lo.device
+    bin_size = ln / pooled
+    p = torch.arange(pooled, dtype=torch.float32, device=dev)
+    s = (torch.arange(sample_num, dtype=torch.float32, device=dev) + 0.5)
+    s = s / sample_num
+    offs = p[:, None] + s[None, :]
+    coords = lo[:, None, None] + bin_size[:, None, None] * offs[None]
+    return coords.reshape(coords.shape[0], pooled * sample_num)
+
+
+def _interp(coord, dim):
+    """CUDA edge rules for coords (N, S) against per-roi dims (N,)."""
+    dim = dim[:, None]
+    in_range = (coord >= -1.0) & (coord <= dim.to(coord.dtype))
+    c = coord.clamp(min=0.0)
+    low = torch.floor(c).long()
+    at_edge = low >= dim - 1
+    low = torch.where(at_edge, dim - 1, low)
+    high = torch.where(at_edge, dim - 1, low + 1)
+    c = torch.where(at_edge, low.to(c.dtype), c)
+    frac = c - low.to(c.dtype)
+    return low, high, 1.0 - frac, frac, in_range
+
+
+def _check_levels(feats_cl):
+    ref = feats_cl[0]
+    for f in feats_cl:
+        if f.dim() != 5 or f.shape[0] != ref.shape[0] \
+                or f.shape[4] != ref.shape[4] or f.dtype != ref.dtype:
+            raise ValueError(
+                "levels must be (B, D, H, W, C) with one B, C and dtype"
+            )
+
+
+def roi_align_3d_plain(feats_cl, rois, levels, valid, out_size,
+                       out_size_depth, featmap_strides,
+                       featmap_strides_depth, sample_num=2):
+    """Plain version of the kernel, in float32, over roi chunks.
+
+    feats_cl: list of (B, D, H, W, C) levels; rois (N, 7) float32
+    [b, x1, y1, x2, y2, z1, z2]; levels (N,) int; valid (N,) bool.
+    Returns (N, C, out_d, out, out) in the features' dtype.
+    """
+    _check_levels(feats_cl)
+    dev = rois.device
+    c = feats_cl[0].shape[-1]
+    n = rois.shape[0]
+    sn = sample_num
+    o, od = out_size, out_size_depth
+    dims = torch.tensor([f.shape[1:4] for f in feats_cl], device=dev)
+    sizes = [f.numel() // c for f in feats_cl]
+    offsets = torch.tensor(
+        [sum(sizes[:i]) for i in range(len(sizes))], device=dev
+    )
+    inv_xy = torch.tensor(
+        [1.0 / s for s in featmap_strides], dtype=torch.float32, device=dev
+    )
+    inv_d = torch.tensor(
+        [1.0 / s for s in featmap_strides_depth], dtype=torch.float32,
+        device=dev,
+    )
+    flat = torch.cat([f.reshape(-1, c) for f in feats_cl])
+    samples = od * sn * (o * sn) ** 2
+    chunk = max(1, _PLAIN_CHUNK_BYTES // (3 * samples * c * 4))
+    out = torch.zeros((n, c, od, o, o), dtype=flat.dtype, device=dev)
+    for s0 in range(0, n, chunk):
+        r = rois[s0:s0 + chunk]
+        t = levels[s0:s0 + chunk].long()
+        m = r.shape[0]
+        dim_d, dim_h, dim_w = dims[t, 0], dims[t, 1], dims[t, 2]
+        sc, scd = inv_xy[t], inv_d[t]
+        start_w = r[:, 1] * sc
+        start_h = r[:, 2] * sc
+        end_w = (r[:, 3] + 1.0) * sc
+        end_h = (r[:, 4] + 1.0) * sc
+        start_d = r[:, 5] * scd
+        end_d = (r[:, 6] + 1.0) * scd
+        xs = _axis_samples(start_w, (end_w - start_w).clamp(min=0.0), o, sn)
+        ys = _axis_samples(start_h, (end_h - start_h).clamp(min=0.0), o, sn)
+        zs = _axis_samples(start_d, (end_d - start_d).clamp(min=0.0), od, sn)
+        xl, xh, wxl, wxh, xin = _interp(xs, dim_w)
+        yl, yh, wyl, wyh, yin = _interp(ys, dim_h)
+        zl, zh, wzl, wzh, zin = _interp(zs, dim_d)
+        base = offsets[t] + r[:, 0].long() * dim_d * dim_h * dim_w
+        base = base[:, None, None, None]
+        hh = dim_h[:, None, None, None]
+        ww = dim_w[:, None, None, None]
+        acc = None
+        for zi, wz in ((zl, wzl), (zh, wzh)):
+            for yi, wy in ((yl, wyl), (yh, wyh)):
+                for xi, wx in ((xl, wxl), (xh, wxh)):
+                    idx = base + (
+                        zi[:, :, None, None] * hh + yi[:, None, :, None]
+                    ) * ww + xi[:, None, None, :]
+                    v = flat[idx.reshape(-1)].reshape(*idx.shape, c).float()
+                    w = (wz[:, :, None, None] * wy[:, None, :, None]) \
+                        * wx[:, None, None, :]
+                    term = v * w[..., None]
+                    acc = term if acc is None else acc + term
+        ok = zin[:, :, None, None] & yin[:, None, :, None] \
+            & xin[:, None, None, :]
+        ok = ok & valid[s0:s0 + chunk, None, None, None]
+        acc = torch.where(ok[..., None], acc, 0.0)
+        acc = acc.reshape(m, od, sn, o, sn, o, sn, c).mean(dim=(2, 4, 6))
+        out[s0:s0 + chunk] = acc.permute(0, 4, 1, 2, 3).to(flat.dtype)
+    return out
+
+
+def roi_align_3d_cuda(feats_cl, rois, levels, valid, out_size,
+                      out_size_depth, featmap_strides,
+                      featmap_strides_depth, sample_num=2):
+    """K2: the same function as `roi_align_3d_plain`, one launch."""
+    global launches
+    _check_levels(feats_cl)
+    dev = rois.device
+    dtype = feats_cl[0].dtype
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    if dtype not in codes:
+        raise ValueError(f"roi_align_3d_cuda takes float32 or bfloat16, "
+                         f"not {dtype}")
+    tensors = [*feats_cl, rois, levels, valid]
+    if not all(t.is_cuda and t.device == dev for t in tensors):
+        raise ValueError("roi_align_3d_cuda takes CUDA tensors on one card")
+    if not all(f.is_contiguous() for f in feats_cl):
+        raise ValueError("levels must be contiguous (B, D, H, W, C)")
+    num_levels = len(feats_cl)
+    if num_levels > 8 or not 1 <= sample_num <= 4:
+        raise ValueError("at most 8 levels and 1..4 samples per bin")
+    n = rois.shape[0]
+    c = feats_cl[0].shape[-1]
+    rois = rois.float().contiguous()
+    levels = levels.to(torch.int32).contiguous()
+    valid = valid.to(torch.uint8).contiguous()
+    out = torch.empty((n, c, out_size_depth, out_size, out_size),
+                      dtype=dtype, device=dev)
+    ptrs = (ctypes.c_longlong * num_levels)(
+        *[f.data_ptr() for f in feats_cl])
+    dims = (ctypes.c_int * (3 * num_levels))(
+        *[int(v) for f in feats_cl for v in f.shape[1:4]])
+    scales = (ctypes.c_float * (2 * num_levels))(
+        *[v for s, sd in zip(featmap_strides, featmap_strides_depth)
+          for v in (1.0 / s, 1.0 / sd)])
+    fn = _cuda.load("roi_align3d").mrcnn3d_roi_align3d
+    fn.restype = ctypes.c_int
+    fn.argtypes = [
+        ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int),
+        ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_void_p,
+    ]
+    status = fn(
+        ptrs, dims, scales, num_levels, codes[dtype], c, rois.data_ptr(),
+        levels.data_ptr(), valid.data_ptr(), out.data_ptr(), n, out_size,
+        out_size_depth, sample_num, _cuda.stream_ptr(dev),
+    )
+    _cuda.check(status, "roi_align3d")
+    launches += 1
+    return out
+
+
+def channels_last_levels(feats):
+    """NCDHW levels -> contiguous (B, D, H, W, C) views (no copy for
+    channels_last_3d storage)."""
+    return [f.permute(0, 2, 3, 4, 1).contiguous() for f in feats]
+
+
+def multi_level_roi_align_3d(feats, rois, out_size, out_size_depth,
+                             featmap_strides, featmap_strides_depth,
+                             sample_num=2, finest_scale=56, valid=None):
+    """feats: list of NCDHW levels; rois (N, 7); valid (N,) bool or None.
+    Returns (N, C, out_d, out, out); invalid rois give zeros."""
+    feats_cl = channels_last_levels(feats)
+    levels = map_roi_levels(rois, len(feats), finest_scale)
+    if valid is None:
+        valid = torch.ones(rois.shape[0], dtype=torch.bool,
+                           device=rois.device)
+    fn = roi_align_3d_cuda if rois.is_cuda else roi_align_3d_plain
+    return fn(feats_cl, rois, levels, valid, out_size, out_size_depth,
+              featmap_strides, featmap_strides_depth, sample_num)
