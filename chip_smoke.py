@@ -10,9 +10,13 @@ Phases, each printing one JSON line with its seconds:
                  the main path gives it (TF32 off): K1 (3-D NMS) on the 10
                  proposal segments and on the 4000-row class-wise problem,
                  keep masks exactly equal; K2 (RoIAlign3D) at bbox geometry
-                 on the 1.0x and 1.5x pyramids and at mask geometry, 1e-4 in
-                 float32 and, in bfloat16, 2e-2 or one bf16 step of the
-                 plain value.  Median of CUDA-event times.
+                 on the 1.0x and 1.5x pyramids and at mask geometry, and on
+                 2000 rois that take its direct-read path (oversized and
+                 thin-wide), 1e-4 in float32 and, in bfloat16, 2e-2 or one
+                 bf16 step of the plain value.  K2's rois by path (window,
+                 direct), as the kernel counts them, must equal its rule
+                 applied to the plain version's taps.  Median of CUDA-event
+                 times, and device time per launch from torch.profiler.
   4. small    -- the narrow two-scale pipeline on the card (kernels) against
                  the CPU (plain versions): valid and labels equal, dets and
                  mask logits of valid rows within 2e-3.
@@ -20,12 +24,15 @@ Phases, each printing one JSON line with its seconds:
                  geometry: a 64x512x512 volume plus its 96x768x768 twin,
                  bfloat16, every budget 2000, boxes and masks, seeded random
                  weights; 1 warm-up and 3 timed volume pairs.  The kernels'
-                 launch counters are zeroed just before and read just after.
+                 launch counters (and K2's rois by path) are zeroed just
+                 before and read just after.
                  Then one profiled step, and one step whose K1 and K2
                  launches are recorded with their arguments.
   6. step_kernels -- each launch of that recorded step, on the arguments
                  the main path gave it, against the plain version (same
-                 tolerances) and timed alone: the per-step kernel times.
+                 tolerances) and timed alone: the per-step kernel times;
+                 then K2's direct-read path on the step's own mask-align
+                 features and geometry.
 Then the kernels line, the card line and, last, the result line
 {"ok": true, "device": {...}}.  Any failure raises: the exit code is then
 not 0 and no result line is printed.
@@ -98,6 +105,56 @@ def time_ms(fn, iters=10, warmup=1):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+# the CUDA kernels behind each wrapper, as the profiler names them
+KERNEL_CUDA_NAMES = {
+    "nms3d": ("nms3d_mask_kernel", "nms3d_scan_kernel"),
+    "roi_align3d": ("roi_align3d_kernel", "roi_align3d_direct_kernel"),
+}
+
+
+def kernel_ms(prof, cuda_names):
+    """{name: device ms} of the CUDA kernels named `cuda_names` in a
+    profile."""
+    import torch
+
+    by_name = dict.fromkeys(cuda_names, 0.0)
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for k in cuda_names:
+            if f"::{k}(" in e.name or f"::{k}<" in e.name:
+                by_name[k] += (e.time_range.end - e.time_range.start) / 1e3
+    return by_name
+
+
+def device_ms(fn, cuda_names, iters=5, tries=2):
+    """{name: device ms per call} of `fn`'s CUDA kernels named
+    `cuda_names`, from torch.profiler over `iters` calls after one
+    warm-up; None when no try's trace holds any of them (the profiler
+    now and then returns a trace without the device events)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        by_name = kernel_ms(prof, cuda_names)
+        if any(by_name.values()):
+            return {k: ms / iters for k, ms in by_name.items()}
+    return None
+
+
+def sum_or_none(values):
+    """Sum of the values, None if any is None."""
+    values = list(values)
+    return None if None in values else sum(values)
 
 
 def bound(nbytes, ops):
@@ -194,6 +251,9 @@ def nms_case(name, sboxes, svalid, counts, thr):
     if mismatches:
         raise AssertionError(f"K1 {name}: {mismatches} keep flags differ")
     ms = time_ms(lambda: nms3d.greedy_scan_cuda(sboxes, svalid, counts, thr))
+    dev_ms = device_ms(
+        lambda: nms3d.greedy_scan_cuda(sboxes, svalid, counts, thr),
+        KERNEL_CUDA_NAMES["nms3d"])
     plain_ms = time_ms(lambda: nms3d.greedy_scan_plain(
         sboxes, svalid, counts, thr), iters=2, warmup=0)
     total = sum(counts)
@@ -203,56 +263,141 @@ def nms_case(name, sboxes, svalid, counts, thr):
     return dict(
         name=name, segments=list(counts), iou_thr=thr,
         valid=int(svalid.sum()), kept=int(got.sum()),
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        bytes=nbytes, ops=ops, max_abs_err=0.0,
+        ms=ms, device_ms=dev_ms and sum_or_none(dev_ms.values()),
+        device_ms_by_kernel=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, bytes=nbytes, ops=ops, max_abs_err=0.0,
     )
 
 
-def touched_bytes(feats_cl, rois, levels, valid, out, out_d, strides,
-                  strides_d, sn):
-    """Bytes of the feature voxels that the valid rois' samples read
-    (each voxel once): the bound counts what this run's data needs."""
+def axis_taps(rois, levels, feats_cl, out, out_d, strides, strides_d, sn):
+    """Per axis (x, y, z), the plain version's taps of `rois` on each
+    roi's level: (low, high, w_low, w_high, in_range), each (N, samples)."""
     import torch
 
     from mrcnn3d_torch.ops.roi_align3d import _axis_samples, _interp
 
+    t = levels.long()
+    shape = torch.tensor([f.shape[1:4] for f in feats_cl],
+                         device=rois.device)[t]
+    inv = torch.tensor([[1.0 / s, 1.0 / sd] for s, sd in
+                        zip(strides, strides_d)], device=rois.device)[t]
+    taps = []
+    for lo_col, hi_col, dim, scale, pooled in (
+        (1, 3, shape[:, 2], inv[:, 0], out),
+        (2, 4, shape[:, 1], inv[:, 0], out),
+        (5, 6, shape[:, 0], inv[:, 1], out_d),
+    ):
+        lo = rois[:, lo_col] * scale
+        ext = (rois[:, hi_col] + 1.0) * scale - lo
+        coords = _axis_samples(lo, ext.clamp(min=0.0), pooled, sn)
+        taps.append(_interp(coords, dim))
+    return taps
+
+
+def _span(low, high, inr):
+    """First voxel and voxel count of the in-range taps (0 if none)."""
+    import torch
+
+    big = torch.iinfo(low.dtype).max
+    first = torch.where(inr, low, big).min(1).values
+    last = torch.where(inr, high, -1).max(1).values
+    return first, torch.where(last >= 0, last - first + 1, 0)
+
+
+def window_need(nx, ny, c, elt, out):
+    """Shared memory (bytes) a K2 block's window path needs at least for
+    an nx x ny window of c channels, as csrc/roi_align3d.cu:window_bytes
+    counts it for the block's share of the channels."""
+    from mrcnn3d_torch.ops.roi_align3d import CHANNEL_BLOCK
+
+    cb = min(c, CHANNEL_BLOCK)
+    return ny * out * cb * 4 + cb * (out * out | 1) * elt + nx * ny * cb * elt
+
+
+def align_geometry(feats_cl, rois, levels, valid, out, out_d, strides,
+                   strides_d, sn):
+    """What K2's work on these arguments is, from the plain version's
+    taps: the bytes of the touched feature voxels (each once), the
+    operations of the separable form over each roi's touched window, the
+    rois that take the window and the direct path (the kernel's rule),
+    and the largest window (staged plane and shared memory need)."""
+    import torch
+
+    from mrcnn3d_torch.ops.roi_align3d import WINDOW_BYTES
+
     c = feats_cl[0].shape[-1]
     elt = feats_cl[0].element_size()
-    total = 0
+    # on the CPU, whose operations round as the kernel's tap arithmetic
+    # (PyTorch on the card divides by a scalar through its reciprocal)
+    sel = valid.bool().cpu()
+    r, lv = rois.cpu()[sel].float(), levels.cpu()[sel]
+    (xl, xh, _, _, xin), (yl, yh, _, _, yin), (zl, zh, _, _, zin) = \
+        axis_taps(r, lv, feats_cl, out, out_d, strides, strides_d, sn)
+    x0, nx = _span(xl, xh, xin)
+    y0, ny = _span(yl, yh, yin)
+    need = window_need(nx, ny, c, elt, out)
+    direct = need > WINDOW_BYTES
+    # distinct z planes per output depth plane (in-range taps only)
+    zs = torch.stack([zl, zh], -1).reshape(r.shape[0], out_d, 2 * sn)
+    zs = torch.where(zin.reshape(r.shape[0], out_d, sn)
+                     .repeat_interleave(2, -1), zs, -1).sort(-1).values
+    planes = ((zs[..., 1:] != zs[..., :-1]) & (zs[..., 1:] >= 0)).sum(-1) \
+        + (zs[..., 0] >= 0)
+    empty = (nx == 0) | (ny == 0)
+    rows = torch.where(empty, 0, ny)[:, None]
+    ops = int((c * (planes * rows * out * 4 * sn
+                    + (planes > 0) * (~empty)[:, None] * out * out * 4 * sn))
+              .sum())
+    # touched voxels: the union of the rois' touched boxes, per level
+    touched = 0
+    z0, nz = _span(zl, zh, zin)
     for lvl, f in enumerate(feats_cl):
-        sel = valid & (levels == lvl)
-        if not bool(sel.any()):
+        on = (lv == lvl) & ~empty & (nz > 0)
+        if not bool(on.any()):
             continue
-        r = rois[sel]
-        _, d, h, w, _ = f.shape
-        mark = torch.zeros((f.shape[0], d, h, w), dtype=torch.bool,
-                           device=f.device)
-        spans = []
-        for lo_col, hi_col, dim, scale, pooled in (
-            (1, 3, w, 1.0 / strides[lvl], out),
-            (2, 4, h, 1.0 / strides[lvl], out),
-            (5, 6, d, 1.0 / strides_d[lvl], out_d),
-        ):
-            lo = r[:, lo_col] * scale
-            ext = (r[:, hi_col] + 1.0) * scale - lo
-            coords = _axis_samples(lo, ext.clamp(min=0.0), pooled, sn)
-            dims = torch.full((r.shape[0],), dim, device=f.device)
-            low, high, _, _, inr = _interp(coords, dims)
-            big = torch.iinfo(low.dtype).max
-            spans.append(torch.where(inr, low, big).min(1).values.tolist())
-            spans.append(torch.where(inr, high, -1).max(1).values.tolist())
-        x0, x1, y0, y1, z0, z1 = spans
-        for i, b in enumerate(r[:, 0].long().tolist()):
-            if x1[i] >= 0 and y1[i] >= 0 and z1[i] >= 0:
-                mark[b, z0[i]:z1[i] + 1, y0[i]:y1[i] + 1,
-                     x0[i]:x1[i] + 1] = True
-        total += int(mark.sum()) * c * elt
-    return total
+        mark = torch.zeros(f.shape[:4], dtype=torch.bool)
+        for b, zz, yy, xx, dz, dy, dx in zip(*(
+                v[on].tolist() for v in (r[:, 0].long(), z0, y0, x0, nz,
+                                         ny, nx))):
+            mark[b, zz:zz + dz, yy:yy + dy, xx:xx + dx] = True
+        touched += int(mark.sum()) * c * elt
+    return dict(
+        touched_bytes=touched, ops=ops,
+        paths={"window": int((~direct).sum()), "direct": int(direct.sum())},
+        max_window_bytes=int((nx * ny * c * elt).max()) if len(nx) else 0,
+        max_smem_need=int(need.max()) if len(nx) else 0,
+    )
+
+
+def direct_rois(gen, k, shape, device):
+    """k rois that K2's window path cannot stage in a 512 x 512 volume:
+    half are oversized for their level (about 420 x 420 voxels but one
+    slice deep, so the volume rule puts them on level 2, where their
+    window is ~27 x 27 voxels), half are thin and wide (a band of 16-20
+    rows across the volume, one slice deep, on the finest level).
+    Returns rois (k, 7)."""
+    import torch
+
+    d, h, w = shape
+    u = torch.rand((k, 3), generator=gen, device=device)
+    x = u[:, 0] * (w - 440)
+    y = u[:, 1] * (h - 440)
+    z = u[:, 2] * (d - 1)
+    big = torch.stack([x, y, x + 400 + u[:, 1] * 30, y + 400 + u[:, 0] * 30,
+                       z, z], 1)
+    y = u[:, 0] * (h - 24)
+    thin = torch.stack([
+        u[:, 1] * 16, y, w - 1 - u[:, 2] * 16, y + 15 + u[:, 1] * 4,
+        u[:, 2] * (d - 1), u[:, 2] * (d - 1)], 1)
+    boxes = torch.where((torch.arange(k, device=device) % 2 == 0)[:, None],
+                        big, thin)
+    return torch.cat([torch.zeros_like(boxes[:, :1]), boxes], 1)
 
 
 def check_align(gen, det, device):
     """K2 on random pyramids and 2000 synthetic rois (2% invalid): the
-    most rows an align of the main path can take."""
+    most rows an align of the main path can take; then 2000 rois that
+    take the direct-read path."""
     import torch
 
     from mrcnn3d_torch.ops import roi_align3d as ra
@@ -264,34 +409,50 @@ def check_align(gen, det, device):
         ("bbox_1.0x", MAIN_SHAPES[0], bcfg, torch.bfloat16),
         ("bbox_1.5x", MAIN_SHAPES[1], bcfg, torch.bfloat16),
         ("mask_1.0x", MAIN_SHAPES[0], mcfg, torch.bfloat16),
+        ("mask_1.0x_direct", MAIN_SHAPES[0], mcfg, torch.bfloat16),
     ]
     calls = []
     for name, shape, geometry, dtype in cases:
         feats = ra.channels_last_levels(
             pyramid(gen, det.model, shape, dtype, device))
-        boxes, _, valid = proposal_boxes(gen, MAIN_BUDGET, shape, device)
-        rois = torch.cat([torch.zeros_like(boxes[:, :1]), boxes], 1)
+        if name.endswith("_direct"):
+            rois = direct_rois(gen, MAIN_BUDGET, shape, device)
+            valid = torch.ones(MAIN_BUDGET, dtype=torch.bool, device=device)
+        else:
+            boxes, _, valid = proposal_boxes(gen, MAIN_BUDGET, shape, device)
+            rois = torch.cat([torch.zeros_like(boxes[:, :1]), boxes], 1)
         levels = ra.map_roi_levels(rois, len(feats))
         calls.append(align_case(name, (feats, rois, levels, valid,
                                        *geometry)))
+    if calls[-1]["paths"]["direct"] == 0:
+        raise AssertionError("K2: the direct-read case took no direct path")
     return calls
 
 
 def align_case(name, args):
     """K2 against its plain version on one launch's arguments (those of
-    `roi_align_3d_cuda`): max error within the dtype's tolerance; median
-    times of both; the bound of the work this data needs."""
+    `roi_align_3d_cuda`): max error within the dtype's tolerance; the rois
+    each path took, counted by the kernel and equal to its rule applied
+    to the plain version's taps; median event times of both versions and
+    the kernel's device time per launch; the bound of the work this data
+    needs."""
     import torch
 
     from mrcnn3d_torch.ops import roi_align3d as ra
 
-    feats, rois, levels, valid, out, out_d, _, _, sn = args
+    feats, rois, levels, valid, out, out_d, strides, strides_d, sn = args
     dtype = feats[0].dtype
+    ra.reset_path_counts()
     got = ra.roi_align_3d_cuda(*args)
+    paths = ra.path_counts()
     want = ra.roi_align_3d_plain(*args)
     torch.cuda.synchronize()
+    geo = align_geometry(*args)
+    if paths != geo["paths"]:
+        raise AssertionError(f"K2 {name}: paths {paths}, the window rule "
+                             f"gives {geo['paths']}")
     diff = (got.float() - want.float()).abs()
-    err = float(diff.max())
+    err = float(diff.max()) if diff.numel() else 0.0
     tol = ALIGN_TOL[str(dtype).split(".")[-1]]
     ok = diff <= tol
     if dtype == torch.bfloat16:
@@ -305,22 +466,26 @@ def align_case(name, args):
             f"than {tol} and one bf16 step; max error {err}")
     del diff, ok
     ms = time_ms(lambda: ra.roi_align_3d_cuda(*args))
+    dev_ms = device_ms(lambda: ra.roi_align_3d_cuda(*args),
+                       KERNEL_CUDA_NAMES["roi_align3d"])
     plain_ms = time_ms(lambda: ra.roi_align_3d_plain(*args), iters=2,
                        warmup=0)
     n_valid = int(valid.sum())
-    bins = out * out * out_d
-    c = feats[0].shape[-1]
-    nbytes = (touched_bytes(*args) + rois.numel() * 4 + rois.shape[0] * 5
+    # inputs once (touched voxels, rois, levels, valid), the output once
+    nbytes = (geo["touched_bytes"] + rois.numel() * 4 + rois.shape[0] * 5
               + got.numel() * got.element_size())
-    ops = n_valid * bins * c * sn ** 3 * 16  # 8 corners x (mul + add)
-    b_ms, b_by = bound(nbytes, ops)
+    b_ms, b_by = bound(nbytes, geo["ops"])
     return dict(
         name=name, dtype=str(dtype).split(".")[-1], rois=rois.shape[0],
         valid=n_valid,
         levels=[int((levels[valid] == i).sum()) for i in range(len(feats))],
-        max_abs_out=float(want.float().abs().max()),
-        ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-        bytes=nbytes, ops=ops, max_abs_err=err, tol=tol,
+        paths=paths, max_window_bytes=geo["max_window_bytes"],
+        max_smem_need=geo["max_smem_need"], window_budget=ra.WINDOW_BYTES,
+        max_abs_out=float(want.float().abs().max()) if want.numel() else 0.0,
+        ms=ms, device_ms=dev_ms and sum_or_none(dev_ms.values()),
+        device_ms_by_kernel=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, bytes=nbytes, ops=geo["ops"], max_abs_err=err,
+        tol=tol,
     )
 
 
@@ -476,6 +641,7 @@ def run_main_path(device, steps=3):
     torch.cuda.reset_peak_memory_stats()
     nms3d.launches = 0
     roi_align3d.launches = 0
+    roi_align3d.reset_path_counts()
     walls, stages, outs = [], [], None
     for step in range(1 + steps):
         timer = StageTimer()
@@ -487,6 +653,7 @@ def run_main_path(device, steps=3):
             stages.append(timer.stages_ms())
         outs = out
     launches = {"nms3d": nms3d.launches, "roi_align3d": roi_align3d.launches}
+    k2_paths = roi_align3d.path_counts()
     n_steps = 1 + steps
 
     dets, labels, valid = outs["dets"], outs["labels"], outs["valid"]
@@ -524,7 +691,8 @@ def run_main_path(device, steps=3):
         stage_ms=stage_ms, detections=n_det,
         labels=sorted(set(labels[valid].tolist())),
         max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
-        launches=launches, launches_per_step=per_step, profile=profile,
+        launches=launches, launches_per_step=per_step,
+        k2_rois_by_path=k2_paths, profile=profile,
     ), captured
 
 
@@ -574,13 +742,30 @@ def check_step_kernels(captured):
     if got != want:
         raise AssertionError(f"launches in the captured step: {got}, "
                              f"expected {want}")
-    return {
+    import torch
+
+    from mrcnn3d_torch.ops import roi_align3d as ra
+
+    # the direct-read path at the step's own mask align: its features and
+    # geometry, with rois the window path cannot stage
+    feats, rois = captured.calls["roi_align3d"][-1][:2]
+    gen = torch.Generator(device=rois.device).manual_seed(13)
+    direct = direct_rois(gen, MAIN_BUDGET, MAIN_SHAPES[0], rois.device)
+    direct_args = (feats, direct, ra.map_roi_levels(direct, len(feats)),
+                   torch.ones(MAIN_BUDGET, dtype=torch.bool,
+                              device=rois.device),
+                   *captured.calls["roi_align3d"][-1][4:])
+    out = {
         "nms3d": [nms_case(name, *args) for name, args in
                   zip(STEP_CALLS["nms3d"], captured.calls["nms3d"])],
         "roi_align3d": [align_case(name, args) for name, args in
                         zip(STEP_CALLS["roi_align3d"],
                             captured.calls["roi_align3d"])],
+        "roi_align3d_direct": align_case("mask_1.0x_direct", direct_args),
     }
+    if out["roi_align3d_direct"]["paths"]["direct"] == 0:
+        raise AssertionError("K2: the direct-read case took no direct path")
+    return out
 
 
 def profile_step(step, top=12):
@@ -610,15 +795,8 @@ def profile_step(step, top=12):
         end = max(end, e)
         by_name[name] = by_name.get(name, 0.0) + (e - s) / 1e3
     span_ms = (end - spans[0][0]) / 1e3
-    port_ms = {
-        kernel: sum(ms for name, ms in by_name.items()
-                    if any(f"::{k}(" in name or f"::{k}<" in name
-                           for k in cuda_names))
-        for kernel, cuda_names in (
-            ("nms3d", ("nms3d_mask_kernel", "nms3d_scan_kernel")),
-            ("roi_align3d", ("roi_align3d_kernel",)),
-        )
-    }
+    port_ms = {kernel: sum(kernel_ms(prof, names).values())
+               for kernel, names in KERNEL_CUDA_NAMES.items()}
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     # the operator that launched each kernel, with its input shapes
     ops = sorted(
@@ -636,10 +814,11 @@ def profile_step(step, top=12):
 
 def kernels_line(nms_calls, align_calls, step_calls, main_path):
     """The {"kernels": [...]} record.  Per kernel: launches from the
-    counted main-path run; ms, plain_ms and the bound summed over one
-    step's launches, each timed alone on the arguments the main path gave
-    it; the profiled device time of the same kernel in one step; the
-    largest error of every comparison (phase 3 and the step's calls)."""
+    counted main-path run; ms (CUDA events), device_ms (profiler), plain_ms
+    and the bound summed over one step's launches, each run alone on the
+    arguments the main path gave it; the profiled device time of the same
+    kernel within one step; the largest error of every comparison (phase
+    3 and the step's calls)."""
     profile = main_path["profile"] or {}
     kernels = []
     for name, src, replaces, checked in (
@@ -649,6 +828,8 @@ def kernels_line(nms_calls, align_calls, step_calls, main_path):
          "mrcnn3d/ops/roi_align3d_pallas.py:76", align_calls),
     ):
         calls = step_calls[name]
+        checked = checked + ([step_calls["roi_align3d_direct"]]
+                             if name == "roi_align3d" else [])
         b_ms, b_by = bound(sum(c["bytes"] for c in calls),
                            sum(c["ops"] for c in calls))
         kernels.append({
@@ -658,14 +839,17 @@ def kernels_line(nms_calls, align_calls, step_calls, main_path):
             "launches_per_step": main_path["launches_per_step"][name],
             "max_abs_err": max(c["max_abs_err"] for c in checked + calls),
             "ms": sum(c["ms"] for c in calls),
+            "device_ms": sum_or_none(c["device_ms"] for c in calls),
             "plain_ms": sum(c["plain_ms"] for c in calls),
             "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
             "profiled_ms_per_step":
                 profile.get("port_kernels_ms", {}).get(name),
             "matched": True,
             "per_step_calls": [
-                {k: c[k] for k in ("name", "valid", "ms", "plain_ms",
-                                   "bound_ms", "bound_by")} for c in calls
+                {k: c[k] for k in ("name", "valid", "ms", "device_ms",
+                                   "device_ms_by_kernel", "plain_ms",
+                                   "bound_ms", "bound_by")}
+                for c in calls
             ],
         })
     return {"kernels": kernels}

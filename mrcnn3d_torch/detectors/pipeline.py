@@ -273,28 +273,28 @@ def simple_test(model, batch, cfg, anchor_sets, rescale=True, mark=None):
 def mask_stage(model, feats, dets, dvalid, refined, mask_roi_cfg):
     """Mask logits for every detection slot (zeros for invalid slots).
 
-    One align over all slots (invalid rois are skipped by the kernel),
-    then the mask heads on the valid rows only, at most MASK_HEAD_CHUNK
-    rows per call; with `refined` (B*max_per_img,) bool, the rows from
-    the 1.5x pathway go to the refinement mask head (reference :385-434
-    splits by provenance too).
+    One align over the valid slots only, then the mask heads, at most
+    MASK_HEAD_CHUNK rows per call; with `refined` (B*max_per_img,) bool,
+    the rows from the 1.5x pathway go to the refinement mask head
+    (reference :385-434 splits by provenance too).
     """
     rois, rvalid = flat_rois(dets[..., :6], dvalid)
-    mfeat = roi_align(feats, rois, mask_roi_cfg, rvalid)
-    n = rois.shape[0]
+    rows = torch.nonzero(rvalid).flatten()
+    mfeat = roi_align(feats, rois[rows], mask_roi_cfg, rvalid[rows])
     layer = mask_roi_cfg["roi_layer"]
     od, o = layer["out_size_depth"], layer["out_size"]
-    out = torch.zeros((n, model.num_classes, 2 * od, 2 * o, 2 * o),
-                      dtype=mfeat.dtype, device=mfeat.device)
-    rows = torch.nonzero(rvalid).flatten()
-    groups = [(rows, model.mask_forward)]
+    out = torch.zeros((rois.shape[0], model.num_classes, 2 * od, 2 * o,
+                       2 * o), dtype=mfeat.dtype, device=mfeat.device)
+    # positions in `rows` (and so in mfeat), per head
+    pos = torch.arange(rows.shape[0], device=rows.device)
+    groups = [(pos, model.mask_forward)]
     if refined is not None:
         sel = refined[rows]
-        groups = [(rows[~sel], model.mask_forward),
-                  (rows[sel], model.refinement_mask_forward)]
+        groups = [(pos[~sel], model.mask_forward),
+                  (pos[sel], model.refinement_mask_forward)]
     for idx, head in groups:
         for chunk in torch.split(idx, MASK_HEAD_CHUNK):
-            out[chunk] = head(mfeat[chunk])
+            out[rows[chunk]] = head(mfeat[chunk])
     return out
 
 

@@ -22,14 +22,17 @@ import torch
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
-KERNELS = ("nms3d", "roi_align3d")
-# -fmad=false: no multiply-add contraction, so every product and sum
-# rounds as in the plain PyTorch versions (IoU comparisons at the
-# threshold, RoIAlign sample coordinates)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-fmad=false", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+# each kernel's own flags.  nms3d: -fmad=false, no multiply-add
+# contraction, so every product and sum of the IoU rounds as in the plain
+# PyTorch version and a comparison at the threshold decides the same way.
+# roi_align3d contracts its interpolation sums; its sample coordinates are
+# explicit round-to-nearest intrinsics, which are never contracted.
+KERNEL_FLAGS = {"nms3d": ("-fmad=false",), "roi_align3d": ()}
+KERNELS = tuple(KERNEL_FLAGS)
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
@@ -45,9 +48,14 @@ def _nvcc() -> str:
     return path
 
 
+def _flags(name: str) -> tuple:
+    return NVCC_FLAGS + KERNEL_FLAGS[name]
+
+
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    flags = " ".join(_flags(name)).encode()
+    digest = hashlib.sha256(src + flags).hexdigest()
     return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
 
 
@@ -69,7 +77,7 @@ def build(names=KERNELS) -> dict:
             continue
         nvcc = nvcc or _nvcc()
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        cmd = [nvcc, *_flags(name), "-o", str(tmp), str(CSRC / f"{name}.cu")]
         procs[name] = (
             subprocess.Popen(cmd, stdout=subprocess.PIPE,
                              stderr=subprocess.STDOUT, text=True),

@@ -15,6 +15,7 @@ launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 import itertools
 
 import torch
@@ -25,6 +26,8 @@ from .box3d import bbox_overlaps_3d
 launches = 0
 
 _TILE = 64
+# the scan keeps 4 removed-words per lane of one warp: 128 tiles of 64
+_MAX_ROWS = 128 * _TILE
 
 
 def sort_desc(x, dim=-1):
@@ -56,9 +59,19 @@ def greedy_scan_plain(sboxes, svalid, counts, iou_thr):
     return torch.cat(keep).to(sboxes.device)
 
 
+@functools.cache
+def _scan_fn():
+    fn = _cuda.load("nms3d").mrcnn3d_nms3d
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 5 + [
+        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+    return fn
+
+
 def greedy_scan_cuda(sboxes, svalid, counts, iou_thr):
-    """K1: the same scan as `greedy_scan_plain`, one kernel launch for
-    every segment."""
+    """K1: the same scan as `greedy_scan_plain`, one launch of each of its
+    two passes for every segment.  The segment table reaches the card in
+    one non-blocking copy from pinned memory; `keep` is written as bool."""
     global launches
     if not (sboxes.is_cuda and svalid.is_cuda):
         raise ValueError("greedy_scan_cuda takes CUDA tensors")
@@ -70,34 +83,33 @@ def greedy_scan_cuda(sboxes, svalid, counts, iou_thr):
         )
     if sboxes.dtype != torch.float32 or not sboxes.is_contiguous():
         raise ValueError("boxes must be contiguous float32")
-    if total == 0:
-        return torch.zeros(0, dtype=torch.bool, device=sboxes.device)
+    if svalid.dtype != torch.bool or not svalid.is_contiguous():
+        raise ValueError("valid must be a contiguous bool tensor")
     dev = sboxes.device
-    words = [(n + _TILE - 1) // _TILE for n in counts]
-    starts = [0, *itertools.accumulate(counts)][:-1]
-    offs = [0, *itertools.accumulate(n * w for n, w in zip(counts, words))]
+    if total == 0:
+        return torch.zeros(0, dtype=torch.bool, device=dev)
     max_count = max(counts)
-    if (max_count + _TILE - 1) // _TILE * 8 > 227 * 1024:
-        raise ValueError(f"segment of {max_count} boxes exceeds shared memory")
-    meta = torch.tensor(starts + list(counts), dtype=torch.int32).to(dev)
-    mask_off = torch.tensor(offs[:-1], dtype=torch.int64).to(dev)
+    if max_count > _MAX_ROWS:
+        raise ValueError(f"segment of {max_count} boxes: at most {_MAX_ROWS}")
+    # per segment: first row, row count, offset of its mask words (the
+    # tiles on or above the diagonal: 64 * W * (W + 1) / 2 words)
+    tiles = [(n + _TILE - 1) // _TILE for n in counts]
+    starts = [0, *itertools.accumulate(counts)][:-1]
+    offs = [0, *itertools.accumulate(_TILE * w * (w + 1) // 2
+                                     for w in tiles)]
+    table = torch.tensor(starts + list(counts) + offs[:-1],
+                         dtype=torch.int64, pin_memory=True)
+    table = table.to(dev, non_blocking=True)
     mask = torch.empty(max(offs[-1], 1), dtype=torch.int64, device=dev)
-    keep = torch.empty(total, dtype=torch.uint8, device=dev)
-    valid_u8 = svalid.to(torch.uint8).contiguous()
-    fn = _cuda.load("nms3d").mrcnn3d_nms3d
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 7 + [
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
-    nseg = len(counts)
-    status = fn(
-        sboxes.data_ptr(), valid_u8.data_ptr(), meta.data_ptr(),
-        meta.data_ptr() + 4 * nseg, mask_off.data_ptr(), mask.data_ptr(),
-        keep.data_ptr(), nseg, max_count, float(iou_thr),
-        _cuda.stream_ptr(dev),
+    keep = torch.empty(total, dtype=torch.bool, device=dev)
+    status = _scan_fn()(
+        sboxes.data_ptr(), svalid.data_ptr(), table.data_ptr(),
+        mask.data_ptr(), keep.data_ptr(), len(counts), max_count,
+        float(iou_thr), _cuda.stream_ptr(dev),
     )
     _cuda.check(status, "nms3d")
     launches += 1
-    return keep.bool()
+    return keep
 
 
 def greedy_scan(sboxes, svalid, counts, iou_thr):

@@ -17,17 +17,30 @@ bilinear_interpolate_3d, level choice of single_level.py:73-81):
 (B, D, H, W, C) (free for the channels_last_3d features the detector
 produces) and returns (N, C, out_d, out, out).  For CUDA tensors it
 launches `csrc/roi_align3d.cu` once for all levels (`roi_align_3d_cuda`,
-counted in `launches`); for CPU tensors it runs `roi_align_3d_plain`.
+counted in `launches`, and each valid roi by its path in `path_rois`);
+for CPU tensors it runs `roi_align_3d_plain`.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import _cuda
 
 launches = 0
+# per card: int64 (2,) counts of valid rois by the path K2 took for them
+# (window, direct), added to by the kernel itself (no synchronisation)
+path_rois: dict = {}
+
+# a K2 block takes up to CHANNEL_BLOCK channels of one roi; its dynamic
+# shared memory is the window path's budget.  Four blocks fit on an H100
+# SM (228 KB, 1 KB reserved per block, ~4.7 KB of static tap and plane
+# tables each).
+CHANNEL_BLOCK = 32
+WINDOW_BYTES = 51 * 1024
+_DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # bytes of float32 work space the plain version allows per roi chunk
 _PLAIN_CHUNK_BYTES = 1 << 28
@@ -157,33 +170,9 @@ def roi_align_3d_plain(feats_cl, rois, levels, valid, out_size,
     return out
 
 
-def roi_align_3d_cuda(feats_cl, rois, levels, valid, out_size,
-                      out_size_depth, featmap_strides,
-                      featmap_strides_depth, sample_num=2):
-    """K2: the same function as `roi_align_3d_plain`, one launch."""
-    global launches
-    _check_levels(feats_cl)
-    dev = rois.device
-    dtype = feats_cl[0].dtype
-    codes = {torch.float32: 0, torch.bfloat16: 1}
-    if dtype not in codes:
-        raise ValueError(f"roi_align_3d_cuda takes float32 or bfloat16, "
-                         f"not {dtype}")
-    tensors = [*feats_cl, rois, levels, valid]
-    if not all(t.is_cuda and t.device == dev for t in tensors):
-        raise ValueError("roi_align_3d_cuda takes CUDA tensors on one card")
-    if not all(f.is_contiguous() for f in feats_cl):
-        raise ValueError("levels must be contiguous (B, D, H, W, C)")
+def _levels_args(feats_cl, featmap_strides, featmap_strides_depth):
+    """ctypes arrays of the levels: data pointers, (D, H, W), scales."""
     num_levels = len(feats_cl)
-    if num_levels > 8 or not 1 <= sample_num <= 4:
-        raise ValueError("at most 8 levels and 1..4 samples per bin")
-    n = rois.shape[0]
-    c = feats_cl[0].shape[-1]
-    rois = rois.float().contiguous()
-    levels = levels.to(torch.int32).contiguous()
-    valid = valid.to(torch.uint8).contiguous()
-    out = torch.empty((n, c, out_size_depth, out_size, out_size),
-                      dtype=dtype, device=dev)
     ptrs = (ctypes.c_longlong * num_levels)(
         *[f.data_ptr() for f in feats_cl])
     dims = (ctypes.c_int * (3 * num_levels))(
@@ -191,23 +180,154 @@ def roi_align_3d_cuda(feats_cl, rois, levels, valid, out_size,
     scales = (ctypes.c_float * (2 * num_levels))(
         *[v for s, sd in zip(featmap_strides, featmap_strides_depth)
           for v in (1.0 / s, 1.0 / sd)])
-    fn = _cuda.load("roi_align3d").mrcnn3d_roi_align3d
+    return ptrs, dims, scales, num_levels
+
+
+_LEVEL_ARGTYPES = [
+    ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int),
+    ctypes.POINTER(ctypes.c_float), ctypes.c_int,
+]
+
+
+def _kernel(name, argtypes):
+    """The library's C function `name`, typed: the level arguments, then
+    `argtypes`."""
+    fn = getattr(_cuda.load("roi_align3d"), name)
     fn.restype = ctypes.c_int
-    fn.argtypes = [
-        ctypes.POINTER(ctypes.c_longlong), ctypes.POINTER(ctypes.c_int),
-        ctypes.POINTER(ctypes.c_float), ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p,
-    ]
-    status = fn(
-        ptrs, dims, scales, num_levels, codes[dtype], c, rois.data_ptr(),
-        levels.data_ptr(), valid.data_ptr(), out.data_ptr(), n, out_size,
-        out_size_depth, sample_num, _cuda.stream_ptr(dev),
+    fn.argtypes = _LEVEL_ARGTYPES + argtypes
+    return fn
+
+
+@functools.cache
+def _align_fn():
+    return _kernel("mrcnn3d_roi_align3d", [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ])
+
+
+@functools.cache
+def _taps_fn():
+    return _kernel("mrcnn3d_roi_align3d_taps", [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ])
+
+
+def _path_counter(dev):
+    counter = path_rois.get(dev)
+    if counter is None:
+        counter = torch.zeros(2, dtype=torch.int64, device=dev)
+        path_rois[dev] = counter
+    return counter
+
+
+def path_counts():
+    """Valid rois that took the window path and the direct path, summed
+    over the cards since the last `reset_path_counts` (synchronises)."""
+    total = [0, 0]
+    for counter in path_rois.values():
+        window, direct = counter.tolist()
+        total = [total[0] + window, total[1] + direct]
+    return {"window": total[0], "direct": total[1]}
+
+
+def reset_path_counts():
+    for counter in path_rois.values():
+        counter.zero_()
+
+
+def _check_cuda_args(feats_cl, rois, levels, valid, out_size,
+                     out_size_depth, sample_num):
+    _check_levels(feats_cl)
+    dev = rois.device
+    dtype = feats_cl[0].dtype
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"roi_align_3d_cuda takes float32 or bfloat16, "
+                         f"not {dtype}")
+    tensors = [*feats_cl, rois, levels, *([] if valid is None else [valid])]
+    if not all(t.is_cuda and t.device == dev for t in tensors):
+        raise ValueError("roi_align_3d_cuda takes CUDA tensors on one card")
+    if not all(f.is_contiguous() and f.data_ptr() % 16 == 0
+               for f in feats_cl):
+        raise ValueError("levels must be contiguous (B, D, H, W, C), "
+                         "16-byte aligned")
+    c = feats_cl[0].shape[-1]
+    cb = min(c, CHANNEL_BLOCK)
+    if c % cb or cb * feats_cl[0].element_size() % 16:
+        raise ValueError(f"{c} channels: a block's share ({cb}) must divide "
+                         f"them and fill 16-byte vectors")
+    if len(feats_cl) > 8 or not 1 <= sample_num <= 4 \
+            or out_size * sample_num > 64 or not 1 <= out_size_depth <= 32:
+        raise ValueError("at most 8 levels, 1..4 samples per bin, "
+                         "out_size * sample_num <= 64 and out_size_depth "
+                         "<= 32")
+
+
+def roi_align_3d_cuda(feats_cl, rois, levels, valid, out_size,
+                      out_size_depth, featmap_strides,
+                      featmap_strides_depth, sample_num=2):
+    """K2: the same function as `roi_align_3d_plain`, one launch (the
+    window kernel, then the direct kernel for the rois it listed).
+
+    Each valid roi takes the window path when its window fits
+    `WINDOW_BYTES` of shared memory and the direct path otherwise; the
+    kernel counts both per card (`path_counts`)."""
+    global launches
+    _check_cuda_args(feats_cl, rois, levels, valid, out_size, out_size_depth,
+                     sample_num)
+    dev = rois.device
+    dtype = feats_cl[0].dtype
+    n = rois.shape[0]
+    c = feats_cl[0].shape[-1]
+    rois = rois.float().contiguous()
+    levels = levels.to(torch.int32).contiguous()
+    valid = valid.to(torch.bool).contiguous()
+    out = torch.empty((n, c, out_size_depth, out_size, out_size),
+                      dtype=dtype, device=dev)
+    # the kernel's list of the rois that take the direct path
+    direct = torch.empty(n + 2, dtype=torch.int32, device=dev)
+    status = _align_fn()(
+        *_levels_args(feats_cl, featmap_strides, featmap_strides_depth),
+        _DTYPE_CODES[dtype], c, rois.data_ptr(), levels.data_ptr(),
+        valid.data_ptr(), out.data_ptr(), _path_counter(dev).data_ptr(),
+        direct.data_ptr(), n, out_size, out_size_depth, sample_num,
+        WINDOW_BYTES, _cuda.stream_ptr(dev),
     )
     _cuda.check(status, "roi_align3d")
     launches += 1
     return out
+
+
+def sample_taps_cuda(feats_cl, rois, levels, out_size, out_size_depth,
+                     featmap_strides, featmap_strides_depth, sample_num=2):
+    """The taps K2 computes for each roi, from the kernel's own device
+    code: (lo, hi, wl, wh, in_range), each (N, T) with the x taps, then
+    y, then z (T = (2 * out_size + out_size_depth) * sample_num).  For the
+    card tests, which hold them against the plain version's."""
+    _check_cuda_args(feats_cl, rois, levels, None, out_size, out_size_depth,
+                     sample_num)
+    dev = rois.device
+    n = rois.shape[0]
+    t = (2 * out_size + out_size_depth) * sample_num
+    rois = rois.float().contiguous()
+    levels = levels.to(torch.int32).contiguous()
+    lo = torch.empty((n, t), dtype=torch.int32, device=dev)
+    hi = torch.empty_like(lo)
+    wl = torch.empty((n, t), dtype=torch.float32, device=dev)
+    wh = torch.empty_like(wl)
+    in_range = torch.empty((n, t), dtype=torch.bool, device=dev)
+    status = _taps_fn()(
+        *_levels_args(feats_cl, featmap_strides, featmap_strides_depth),
+        rois.data_ptr(), levels.data_ptr(), n, out_size, out_size_depth,
+        sample_num, lo.data_ptr(), hi.data_ptr(), wl.data_ptr(),
+        wh.data_ptr(), in_range.data_ptr(), _cuda.stream_ptr(dev),
+    )
+    _cuda.check(status, "roi_align3d_taps")
+    return lo, hi, wl, wh, in_range
 
 
 def channels_last_levels(feats):

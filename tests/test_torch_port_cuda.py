@@ -5,9 +5,11 @@ with nvcc and skips elsewhere.  On the card (JAX not needed):
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py
 
-Tolerances: keep masks exactly equal; RoIAlign 1e-4 in float32 and 2e-2
-in bfloat16 (one rounding of the output; the sums run in float32 in
-both versions); the small pipeline 2e-3 against the CPU.
+Tolerances: keep masks exactly equal; RoIAlign 1e-4 in float32 and, in
+bfloat16, 2e-2 or one bf16 step (one rounding of the output; the sums run
+in float32 in both versions, in another order); the sample taps (voxels
+and weights) exactly equal; the small pipeline and the mask stage 2e-3
+against the CPU.
 """
 import pytest
 import torch
@@ -107,6 +109,152 @@ def test_roi_align_kernel_matches_plain(cuda, dtype, tol, out, out_d):
     assert got.dtype == dtype and got.shape == (300, 64, out_d, out, out)
     assert float((got.float() - want.float()).abs().max()) <= tol
     assert not got[~valid].any()
+
+
+def _align_matches(got, want, tol):
+    diff = (got.float() - want.float()).abs()
+    ok = diff <= tol
+    if got.dtype == torch.bfloat16:
+        _, e = torch.frexp(want.float())
+        ok |= diff <= torch.ldexp(torch.ones_like(diff), e - 8)
+    return bool(ok.all())
+
+
+def _main_levels(gen, dtype, device, shape=(64, 512, 512)):
+    """Random (B, D, H, W, C) levels of the 1.0x main path's shapes."""
+    d, h, w = shape
+    return [
+        torch.randn((1, d // sd, h // s, w // s, 64), generator=gen,
+                    device=device).to(dtype)
+        for s, sd in zip(STRIDES, STRIDES_D)
+    ]
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("kind", ["proposals", "direct"])
+def test_roi_align_mask_geometry_2000_rois(cuda, dtype, tol, kind):
+    """K2 at mask geometry (14x14x10) over 2000 valid rois, both paths
+    counted as the kernel's window rule gives them."""
+    import chip_smoke
+
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    feats = _main_levels(gen, dtype, cuda)
+    if kind == "direct":
+        rois = chip_smoke.direct_rois(gen, 2000, (64, 512, 512), cuda)
+    else:
+        boxes, _, _ = chip_smoke.proposal_boxes(gen, 2000, (64, 512, 512),
+                                                cuda)
+        rois = torch.cat([torch.zeros_like(boxes[:, :1]), boxes], 1)
+    valid = torch.ones(2000, dtype=torch.bool, device=cuda)
+    levels = ra.map_roi_levels(rois, 4)
+    args = (feats, rois, levels, valid, 14, 10, STRIDES, STRIDES_D, 2)
+    ra.reset_path_counts()
+    got = ra.roi_align_3d_cuda(*args)
+    paths = ra.path_counts()
+    assert paths == chip_smoke.align_geometry(*args)["paths"]
+    assert paths["window"] + paths["direct"] == 2000
+    if kind == "direct":
+        assert paths["direct"] == 2000
+    else:
+        assert paths["window"] > paths["direct"] > 0
+    assert _align_matches(got, ra.roi_align_3d_plain(*args), tol)
+
+
+@pytest.mark.parametrize("out,out_d", [(7, 3), (14, 10)])
+def test_roi_align_taps_match_plain(cuda, out, out_d):
+    """The kernel (built with multiply-add contraction) samples the same
+    voxels with the same weights as the plain version on the CPU, whose
+    operations all round to nearest.  (PyTorch on the card divides by a
+    Python scalar through its reciprocal, so the plain version's bin sizes
+    there may differ from these in the last bit.)"""
+    import chip_smoke
+
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    feats = [
+        torch.zeros((2, 16 >> i, 64 >> i, 64 >> i, 64), device=cuda)
+        for i in range(4)
+    ]
+    rois = _rois(gen, 500, cuda)
+    levels = ra.map_roi_levels(rois, 4)
+    lo, hi, wl, wh, inr = ra.sample_taps_cuda(
+        feats, rois, levels, out, out_d, STRIDES, STRIDES_D, 2)
+    want = chip_smoke.axis_taps(rois.cpu(), levels.cpu(), feats, out, out_d,
+                                STRIDES, STRIDES_D, 2)
+    lo, hi, wl, wh, inr = (t.cpu() for t in (lo, hi, wl, wh, inr))
+    cols = [0, 2 * out, 4 * out, 4 * out + 2 * out_d]
+    for axis, (w_lo, w_hi, w_wl, w_wh, w_in) in enumerate(want):
+        a, b = cols[axis], cols[axis + 1]
+        assert torch.equal(lo[:, a:b].long(), w_lo)
+        assert torch.equal(hi[:, a:b].long(), w_hi)
+        assert torch.equal(wl[:, a:b], w_wl)
+        assert torch.equal(wh[:, a:b], w_wh)
+        assert torch.equal(inr[:, a:b], w_in)
+
+
+def test_mask_stage_aligns_valid_rows_only(cuda):
+    """The mask stage hands K2 only the valid detection rows; the logits
+    match the CPU, zeros in invalid slots."""
+    import chip_smoke
+    from mrcnn3d_torch.detectors import pipeline
+    from mrcnn3d_torch.entry import build
+
+    cfg = chip_smoke.small_config()
+    gpu = build(cfg, device=cuda, budgets=64)
+    cpu = build(cfg, device="cpu", budgets=64)
+    gen = torch.Generator().manual_seed(6)
+    feats = [torch.randn((1, 8, 8 >> i, 32 >> i, 32 >> i), generator=gen)
+             for i in range(4)]
+    xy = torch.rand((1, 40, 2), generator=gen) * 24
+    z = torch.rand((1, 40, 1), generator=gen) * 6
+    dets = torch.cat([xy, xy + 4 + torch.rand((1, 40, 2), generator=gen)
+                      * 8, z, z + 1, torch.rand((1, 40, 1),
+                                                generator=gen)], -1)
+    dvalid = torch.rand((1, 40), generator=gen) > 0.4
+    refined = torch.rand(40, generator=gen) > 0.5
+    mcfg = cfg.model["mask_roi_extractor"]
+    before = ra.launches
+    ra.reset_path_counts()
+    got = pipeline.mask_stage(
+        gpu.model, [f.to(cuda).contiguous(
+            memory_format=torch.channels_last_3d) for f in feats],
+        dets.to(cuda), dvalid.to(cuda), refined.to(cuda), mcfg)
+    paths = ra.path_counts()
+    assert ra.launches == before + 1
+    assert paths["window"] + paths["direct"] == int(dvalid.sum())
+    want = pipeline.mask_stage(cpu.model, feats, dets, dvalid, refined,
+                               mcfg)
+    assert got.shape == want.shape
+    assert float((got.cpu() - want).abs().max()) <= 2e-3
+    assert not got[~dvalid.reshape(-1).to(cuda)].any()
+
+
+def _scan(boxes, scores, valid, counts, thr):
+    order = nms3d.segment_order(scores, valid, counts)
+    sboxes, svalid = boxes[order].contiguous(), valid[order]
+    before = nms3d.launches
+    got = nms3d.greedy_scan_cuda(sboxes, svalid, counts, thr)
+    assert nms3d.launches == before + 1
+    assert got.dtype == torch.bool
+    assert torch.equal(got, nms3d.greedy_scan_plain(sboxes, svalid, counts,
+                                                    thr))
+    return got
+
+
+def test_nms_kernel_long_and_degenerate_segments(cuda):
+    """4000 rows (two words per lane), an all-invalid segment, a segment
+    where every box suppresses the others, and sizes 1, 64, 65, 2048."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    counts = [4000, 300, 500, 1, 64, 65, 2048]
+    boxes, scores, valid = _segments(gen, counts, cuda, False)
+    valid[4000:4300] = False
+    boxes[4300:4800] = torch.tensor([10.0, 10.0, 40.0, 40.0, 2.0, 9.0],
+                                    device=cuda)
+    valid[4300:4800] = True
+    got = _scan(boxes, scores, valid, counts, 0.5)
+    assert not got[4000:4300].any()
+    assert int(got[4300:4800].sum()) == 1
+    assert 0 < int(got[:4000].sum()) < int(valid[:4000].sum())
 
 
 def test_wrapper_refuses_mixed_devices(cuda):
