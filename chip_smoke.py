@@ -33,6 +33,25 @@ Phases, each printing one JSON line with its seconds:
                  tolerances) and timed alone: the per-step kernel times;
                  then K2's direct-read path on the step's own mask-align
                  features and geometry.
+  7. small_train -- one train step of the narrow config on the card
+                 (kernels, float32, TF32 off) and on the CPU (plain
+                 versions) from the same weights, batch and draws: every
+                 anchor target and R-CNN sample (labels, assignments,
+                 counts) equal, losses within 2e-3, each parameter's
+                 update within 2e-3 of the CPU update's largest magnitude
+                 (2e-2 for the stem conv, under the stem max-pool).
+  8. train    -- the flagship's train step at full width and bench.py's
+                 training geometry: a 64x128x128 crop plus its 96x192x192
+                 twin, batch 2, 16 gt boxes and masks per image (bench.py's
+                 synthetic batch), the config's budgets, bf16 autocast over
+                 float32 parameters; 1 warm-up and 3 timed steps, the
+                 counters zeroed just before and read just after: K1 2, K2
+                 5 and K2's backward 5 launches a step.  Then one profiled
+                 step, and one step whose launches are recorded.
+  9. train_step_kernels -- each launch of that recorded train step
+                 against its plain version and timed alone: K1 and K2 as
+                 in phase 6, K2's backward within 1e-4 of the largest
+                 gradient (float atomics add in another order).
 Then the kernels line, the card line and, last, the result line
 {"ok": true, "device": {...}}.  Any failure raises: the exit code is then
 not 0 and no result line is printed.
@@ -63,6 +82,13 @@ NMS_CLASSWISE_K = 4000
 # by one bf16 step (both versions round an f32 sum to bf16)
 ALIGN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 PIPELINE_ATOL = 2e-3
+# K2's backward against its plain version: relative to the largest
+# gradient of the launch (float atomics and index_add_ sum in any order)
+BACKWARD_TOL = 1e-4
+# bench.py's training geometry: the 1.0x crop (D, H, W), batch, max_gt
+TRAIN_CROP = (64, 128, 128)
+TRAIN_BATCH = 2
+TRAIN_MAX_GT = 16
 
 
 def emit(obj):
@@ -111,6 +137,7 @@ def time_ms(fn, iters=10, warmup=1):
 KERNEL_CUDA_NAMES = {
     "nms3d": ("nms3d_mask_kernel", "nms3d_scan_kernel"),
     "roi_align3d": ("roi_align3d_kernel", "roi_align3d_direct_kernel"),
+    "roi_align3d_backward": ("roi_align3d_backward_kernel",),
 }
 
 
@@ -549,6 +576,51 @@ def small_inputs(seed, with_proposals):
     return batch
 
 
+def small_train_config():
+    """The narrow config with the training budgets cut to its size:
+    proposals 64 per level and image, the RPN sampler 64 anchors and the
+    R-CNN sampler 32 rois (a quarter positive) per image."""
+    cfg = small_config()
+    tc = cfg.train_cfg
+    for k in ("nms_pre", "nms_post", "max_num"):
+        tc["rpn_proposal"][k] = SMALL_BUDGET
+    tc["rpn"]["sampler"]["num"] = 64
+    tc["rcnn"]["sampler"]["num"] = 32
+    return cfg
+
+
+def small_train_batch(seed, batch_size=2, max_gt=4):
+    """numpy training batch of the small shapes (NCDHW volumes): gt
+    boxes inside the volume (the 1.5x twin's scaled by 1.5), the last gt
+    of each image invalid, labels 1, gt masks that fill each box's
+    central part."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    (d, h, w), shape2 = SMALL_SHAPES
+    b, g = batch_size, max_gt
+    xy = rng.uniform(0, 18, (b, g, 2))
+    size = rng.uniform(6, 13, (b, g, 2))
+    z = rng.uniform(0, 4, (b, g, 1))
+    dz = rng.uniform(2, 3.5, (b, g, 1))
+    boxes = np.concatenate([xy, xy + size, z, z + dz], -1).astype(np.float32)
+    valid = np.ones((b, g), bool)
+    valid[:, -1] = False
+    masks = np.zeros((b, g, d, h, w), np.uint8)
+    for i in range(b):
+        for j in range(g):
+            x1, y1, x2, y2, z1, z2 = np.round(boxes[i, j]).astype(int)
+            masks[i, j, z1:z2, y1 + 1:y2, x1 + 1:x2] = 1
+    labels = np.ones((b, g), np.int32)
+    return {
+        "imgs": rng.randn(b, 3, d, h, w).astype(np.float32),
+        "imgs_2": rng.randn(b, 3, *shape2).astype(np.float32),
+        "gt_boxes": boxes, "gt_boxes_2": boxes * np.float32(1.5),
+        "gt_labels": labels, "gt_labels_2": labels,
+        "gt_valid": valid, "gt_valid_2": valid, "gt_masks": masks,
+    }
+
+
 def small_run(det, batch, scale=1.0):
     """The small pipeline on `det`'s device; numpy outputs."""
     import torch
@@ -697,17 +769,25 @@ def run_main_path(device, steps=3):
 
 
 class Capture:
-    """Within the block, records the arguments of every launch of K1 and
-    K2 (calling the kernels as usual), by wrapping the two wrappers."""
+    """Within the block, records the arguments of every launch of the
+    named kernels (calling them as usual), by wrapping their wrappers:
+    K1 and K2 by default, K2's backward too when it is named."""
+
+    def __init__(self, kernels=("nms3d", "roi_align3d")):
+        self.kernels = kernels
 
     def __enter__(self):
         from mrcnn3d_torch.ops import nms3d, roi_align3d
 
-        self.calls = {"nms3d": [], "roi_align3d": []}
-        self._saved = [
-            (nms3d, "greedy_scan_cuda", nms3d.greedy_scan_cuda),
-            (roi_align3d, "roi_align_3d_cuda", roi_align3d.roi_align_3d_cuda),
-        ]
+        wrappers = {
+            "nms3d": (nms3d, "greedy_scan_cuda"),
+            "roi_align3d": (roi_align3d, "roi_align_3d_cuda"),
+            "roi_align3d_backward": (roi_align3d,
+                                     "roi_align_3d_backward_cuda"),
+        }
+        self.calls = {k: [] for k in self.kernels}
+        self._saved = [(*wrappers[k], getattr(*wrappers[k]))
+                       for k in self.kernels]
         for (mod, attr, fn), calls in zip(self._saved, self.calls.values()):
             setattr(mod, attr, self._recorder(fn, calls))
         return self
@@ -812,14 +892,469 @@ def profile_step(step, top=12):
     )
 
 
-def kernels_line(nms_calls, align_calls, step_calls, main_path):
+# ---------------------------------------------------------------------------
+# phase 7: one small train step, card against CPU
+# ---------------------------------------------------------------------------
+
+
+class SampleRecorder:
+    """Within the block, records every anchor target and R-CNN sample
+    that forward_train makes (on the CPU), by wrapping the two functions
+    in the pipeline's namespace, and the count behind every draw."""
+
+    def __enter__(self):
+        from mrcnn3d_torch.detectors import pipeline
+
+        self.made = {"anchor_target_single": [], "sample_rcnn_single": []}
+        self._saved = [(name, getattr(pipeline, name)) for name in self.made]
+        for name, fn in self._saved:
+            setattr(pipeline, name, self._recorder(fn, self.made[name]))
+        return self
+
+    @staticmethod
+    def _recorder(fn, made):
+        def record(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            items = out.items() if isinstance(out, dict) \
+                else out._asdict().items()
+            made.append({k: v.detach().cpu() for k, v in items})
+            return out
+
+        return record
+
+    def __exit__(self, *exc):
+        from mrcnn3d_torch.detectors import pipeline
+
+        for name, fn in self._saved:
+            setattr(pipeline, name, fn)
+        return False
+
+
+class CountedDraws:
+    """The samplers' draws from a CPU torch.Generator (so the card and
+    the CPU draw the same integers), recording (site, n, high)."""
+
+    def __init__(self, seed):
+        import torch
+
+        from mrcnn3d_torch.core.targets import TorchDraws
+
+        self.draws = TorchDraws(torch.Generator().manual_seed(seed))
+        self.highs = []
+
+    def __call__(self, site, n, high):
+        self.highs.append((site, n, int(high)))
+        return self.draws(site, n, high)
+
+
+def small_train_step(device):
+    """One train step of the narrow config on `device` from seed 0's
+    weights and CountedDraws(7): (losses, {name: (update, parameter
+    after the step)}, the recorded samples, the draws' counts, the stem's
+    tensors), all on the CPU.  The update is the step's learning rate
+    times SGD's momentum buffer, as the optimizer applies it (the
+    parameter's own rounding would hide it at a step this small).  The
+    stem's tensors, per input shape: the max-pool's input and the
+    gradient that reaches the stem conv's output."""
+    import torch
+
+    from mrcnn3d_torch.entry import build_trainer
+
+    trainer = build_trainer(small_train_config(), device=device, seed=0)
+    trainer.draws = CountedDraws(7)
+    batch = {k: torch.from_numpy(v).to(device)
+             for k, v in small_train_batch(3).items()}
+    backbone = trainer.model.backbone
+    stem = {"pool_in": {}, "conv_grad": {}}
+
+    def on_conv(mod, inp, out):
+        key = tuple(out.shape)
+        out.register_hook(lambda g: stem["conv_grad"].__setitem__(
+            key, g.detach().cpu()))
+
+    def on_pool(mod, inp, out):
+        stem["pool_in"][tuple(inp[0].shape)] = inp[0].detach().cpu()
+
+    hooks = [backbone.conv1.register_forward_hook(on_conv),
+             backbone.maxpool.register_forward_hook(on_pool)]
+    with SampleRecorder() as rec:
+        losses = trainer.step(batch)
+    for h in hooks:
+        h.remove()
+    opt = trainer.state.optimizer
+    lr = opt.param_groups[0]["lr"]
+    updates = {n: ((lr * opt.state[p]["momentum_buffer"]).cpu(),
+                   p.detach().cpu())
+               for n, p in trainer.model.named_parameters()}
+    return ({k: float(v) for k, v in losses.items()}, updates, rec.made,
+            trainer.draws.highs, stem)
+
+
+def stem_divergence(gpu_stem, cpu_stem):
+    """Per stem input shape, where the card's and the CPU's stems part:
+    the largest difference of the max-pool's input (convolution
+    rounding), the windows whose argmax differs between the two inputs
+    (both pooled on the CPU, so the pool's own rule is the same), and the
+    largest difference of the gradient at the stem conv's output against
+    its largest value."""
+    import torch.nn.functional as F
+
+    out = {}
+    for shape, x_cpu in cpu_stem["pool_in"].items():
+        x_gpu = gpu_stem["pool_in"][shape]
+        _, i_cpu = F.max_pool3d(x_cpu, 3, 2, 1, return_indices=True)
+        _, i_gpu = F.max_pool3d(x_gpu, 3, 2, 1, return_indices=True)
+        g_cpu = cpu_stem["conv_grad"][shape]
+        g_gpu = gpu_stem["conv_grad"][shape]
+        out["x".join(map(str, shape[2:]))] = dict(
+            pool_in_max_diff=float((x_gpu - x_cpu).abs().max()),
+            argmax_flips=int((i_gpu != i_cpu).sum()), windows=i_cpu.numel(),
+            conv_grad_max_diff=float((g_gpu - g_cpu).abs().max()),
+            conv_grad_max=float(g_cpu.abs().max()),
+        )
+    return out
+
+
+# float entries of the recorded targets and samples: from boxes decoded
+# (proposals) or encoded (deltas) in float32 on either device
+SAMPLE_FLOATS = ("bbox_targets", "rois")
+# parameter updates, card against CPU: within UPDATE_TOL of the CPU
+# update's largest magnitude.  The stem conv's weights sit under the stem
+# max-pool, whose argmax between two values equal to float32 rounding
+# follows each device's convolution rounding: a flipped window routes its
+# gradient to the neighbouring voxel, which moves the stem conv's weight
+# gradient by about 1% of its largest (1.0% on the narrow config).  The
+# phase reports the flips and the gradient they move (`stem_divergence`)
+UPDATE_TOL = {"backbone.conv1.weight": 2e-2}
+
+
+def check_small_train(device):
+    """The narrow train step on the card against the CPU: every draw's
+    count, anchor target and R-CNN sample equal (float boxes and deltas
+    within PIPELINE_ATOL), the losses within PIPELINE_ATOL, each
+    parameter's update within PIPELINE_ATOL of the CPU update's largest
+    magnitude (UPDATE_TOL for the stem conv), and each parameter after
+    the step within that and its own float32 spacing."""
+    import math
+
+    import torch
+
+    gpu = small_train_step(device)
+    cpu = small_train_step("cpu")
+    if gpu[3] != cpu[3]:
+        raise AssertionError("small train: the draws' counts differ")
+    made_err = 0.0
+    for kind, items in cpu[2].items():
+        if len(items) != len(gpu[2][kind]):
+            raise AssertionError(f"small train: {kind} calls differ")
+        for want, got in zip(items, gpu[2][kind]):
+            for key, w in want.items():
+                g = got[key]
+                if key in SAMPLE_FLOATS:
+                    e = float((g - w).abs().max()) if w.numel() else 0.0
+                    if not e <= PIPELINE_ATOL:
+                        raise AssertionError(
+                            f"small train: {kind} {key} differ by {e}")
+                    made_err = max(made_err, e)
+                elif not bool((g == w).all()):
+                    raise AssertionError(f"small train: {kind} {key} differ")
+    loss_err = max(abs(gpu[0][k] - v) for k, v in cpu[0].items())
+    if set(gpu[0]) != set(cpu[0]) or not loss_err <= PIPELINE_ATOL:
+        raise AssertionError(f"small train: losses differ by {loss_err}")
+    update_err = {}
+    for name, (want, p_cpu) in cpu[1].items():
+        got, p_gpu = gpu[1][name]
+        scale = float(want.abs().max())
+        tol = UPDATE_TOL.get(name, PIPELINE_ATOL) * scale
+        e = float((got - want).abs().max())
+        if not e <= tol:
+            raise AssertionError(f"small train: {name} update differs by "
+                                 f"{e}, largest {scale}")
+        # the parameters after the step: the same, plus the float32
+        # spacing of each parameter (its rounding after the update)
+        spacing = (torch.nextafter(p_cpu, torch.full_like(p_cpu, math.inf))
+                   - p_cpu)
+        if not bool(((p_gpu - p_cpu).abs() <= tol + spacing).all()):
+            raise AssertionError(f"small train: {name} after the step "
+                                 f"differs beyond its update's tolerance")
+        update_err[name] = e / scale if scale else 0.0
+    worst = sorted(update_err, key=update_err.get)[-3:]
+    return dict(
+        losses=gpu[0], max_loss_err=loss_err, draws=len(cpu[3]),
+        positives=[h for site, _, h in cpu[3] if site[-1] == "pos"],
+        samples={k: len(v) for k, v in cpu[2].items()},
+        max_sample_float_err=made_err,
+        worst_update_rel_err={k: update_err[k] for k in worst},
+        stem=stem_divergence(gpu[4], cpu[4]),
+        tol=PIPELINE_ATOL, update_tol=UPDATE_TOL,
+    )
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the full-width train step
+# ---------------------------------------------------------------------------
+
+
+def train_batch(gen, device):
+    """bench.py's synthetic training batch (make_batch), NCDHW: per scale
+    f = 1.0, 1.5, random bf16 volumes of the crop times f; TRAIN_MAX_GT
+    valid gt boxes per image with x1 = y1 ~ U(4, 0.6 H), extent ~ U(8,
+    0.3 H), z from 2 to 14; labels 1; gt masks all ones at 1.0x.  The
+    1.5x boxes are the 1.0x boxes times 1.5, so both scales hold the same
+    objects.  That departs from bench.py on purpose: bench.py maps the
+    shared draws onto the 1.5x crop's own H before scaling by 1.5, so
+    its 1.5x boxes are not its 1.0x boxes scaled."""
+    import torch
+
+    d, h, w = TRAIN_CROP
+    b, g = TRAIN_BATCH, TRAIN_MAX_GT
+    x1 = 4 + torch.rand((b, g, 1), generator=gen, device=device) \
+        * (h * 0.6 - 4)
+    size = 8 + torch.rand((b, g, 1), generator=gen, device=device) \
+        * (h * 0.3 - 8)
+    batch = {}
+    for s in range(2):
+        f = 1.5 ** s
+        sfx = "" if s == 0 else "_2"
+        batch["imgs" + sfx] = torch.randn(
+            (b, 3, int(d * f), int(h * f), int(w * f)), generator=gen,
+            device=device).to(torch.bfloat16)
+        lo, hi = x1 * f, (x1 + size) * f
+        batch["gt_boxes" + sfx] = torch.cat(
+            [lo, lo, hi, hi, torch.full_like(lo, 2.0 * f),
+             torch.full_like(lo, 14.0 * f)], -1)
+        batch["gt_valid" + sfx] = torch.ones((b, g), dtype=torch.bool,
+                                             device=device)
+        batch["gt_labels" + sfx] = torch.ones((b, g), dtype=torch.int32,
+                                              device=device)
+    batch["gt_masks"] = torch.ones((b, g, d, h, w), dtype=torch.uint8,
+                                   device=device)
+    return batch
+
+
+TRAIN_PER_STEP = {"nms3d": 2, "roi_align3d": 5, "roi_align3d_backward": 5}
+
+
+def run_train_path(device, steps=3):
+    """The flagship's train step at full width: 1 warm-up and `steps`
+    timed steps with the launch counters zeroed just before and read just
+    after; then one profiled step and one recorded step."""
+    import numpy as np
+    import torch
+
+    from mrcnn3d_torch.entry import build_trainer
+    from mrcnn3d_torch.ops import nms3d, roi_align3d
+
+    torch.backends.cudnn.benchmark = True
+    trainer = build_trainer(CONFIG, device=device, seed=0,
+                            compute_dtype=torch.bfloat16)
+    batch = train_batch(torch.Generator(device=device).manual_seed(17),
+                        device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nms3d.launches = 0
+    roi_align3d.launches = 0
+    roi_align3d.backward_launches = 0
+    walls, stages, losses = [], [], []
+    for step in range(1 + steps):
+        timer = StageTimer()
+        t0 = time.perf_counter()
+        out = trainer.step(batch, mark=timer)
+        torch.cuda.synchronize()
+        if step:
+            walls.append(time.perf_counter() - t0)
+            stages.append(timer.stages_ms())
+        losses.append(out)
+    launches = {"nms3d": nms3d.launches, "roi_align3d": roi_align3d.launches,
+                "roi_align3d_backward": roi_align3d.backward_launches}
+    n_steps = 1 + steps
+    for name, count in TRAIN_PER_STEP.items():
+        if launches[name] != count * n_steps:
+            raise AssertionError(
+                f"train: {name} {launches[name]} launches in {n_steps} "
+                f"steps, expected {count} per step")
+    losses = [{k: float(v) for k, v in out.items()} for out in losses]
+    bad = [(i, k) for i, out in enumerate(losses) for k, v in out.items()
+           if not np.isfinite(v)]
+    if bad:
+        raise AssertionError(f"train: non-finite losses {bad}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    names = stages[0].keys()
+    stage_ms = {k: float(np.median([s[k] for s in stages])) for k in names}
+    median = float(np.median(walls))
+    profile = profile_step(lambda: trainer.step(batch))
+    if profile:
+        # the profiler's own host cost stretches the kernel span of a
+        # step of ~9000 launches; the busy time against the timed step
+        # says how far the host holds the card back
+        profile["busy_share_of_median_step"] = \
+            profile["busy_ms"] / (median * 1e3)
+    with Capture(tuple(TRAIN_PER_STEP)) as captured:
+        trainer.step(batch)
+    torch.cuda.synchronize()
+    return dict(
+        steps=steps, batch=TRAIN_BATCH, crop=list(TRAIN_CROP),
+        step_s=walls, median_step_s=median,
+        volumes_per_s=TRAIN_BATCH / median, stage_ms=stage_ms,
+        losses_first=losses[0], losses_last=losses[-1],
+        max_memory_allocated_gib=peak, launches=launches,
+        launches_per_step=TRAIN_PER_STEP, profile=profile,
+    ), captured
+
+
+# ---------------------------------------------------------------------------
+# phase 9: the train step's kernel launches, each alone
+# ---------------------------------------------------------------------------
+
+
+# names of one train step's forward launches, in the order forward_train
+# makes them
+TRAIN_STEP_CALLS = {
+    "nms3d": ["proposals_1.0x", "proposals_1.5x"],
+    "roi_align3d": ["bbox_1.0x", "bbox_1.5x", "refinement_1.0x",
+                    "mask_1.0x", "mask_refinement_1.0x"],
+}
+
+
+def _fold_counts(lo, hi, wl, wh, inr, pooled, sn):
+    """Per roi and output bin along one axis, the distinct voxels its sn
+    in-range taps add to with a nonzero weight: (N, pooled)."""
+    import torch
+
+    n = lo.shape[0]
+    vox = torch.stack([lo, hi], -1)
+    keep = (torch.stack([wl, wh], -1) != 0) & inr[..., None]
+    vox = torch.where(keep, vox, -1).reshape(n, pooled, 2 * sn)
+    vox = vox.sort(-1).values
+    return ((vox[..., 1:] != vox[..., :-1]) & (vox[..., 1:] >= 0)).sum(-1) \
+        + (vox[..., 0] >= 0)
+
+
+def backward_case(name, args):
+    """K2's backward against its plain version on one launch's arguments
+    (those of `roi_align_3d_backward_cuda`): within BACKWARD_TOL of the
+    largest gradient; median event times of both versions and the
+    kernel's device time per launch (the scatter kernel alone, not the
+    memset of the gradient buffer before it); the bound of this work:
+    the touched voxels of the float32 gradient written once, the valid
+    rois' rows of grad_out and their rois and levels read once, every
+    roi's flag read once (the kernel returns at once on an invalid roi);
+    a multiply and an add per scattered value, as the kernel folds each
+    bin's samples per axis."""
+    import torch
+
+    from mrcnn3d_torch.ops import roi_align3d as ra
+
+    grad_out, shapes, rois, levels, valid, out, out_d, strides, strides_d, \
+        sn = args
+    got = ra.roi_align_3d_backward_cuda(*args)
+    want = ra.roi_align_3d_backward_plain(*args)
+    torch.cuda.synchronize()
+    if [g.dtype for g in got] != [torch.float32] * len(shapes) or \
+            [tuple(g.shape) for g in got] != [tuple(s) for s in shapes]:
+        raise AssertionError(f"K2 backward {name}: gradient dtype or shape")
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    scale = max(float(w.abs().max()) for w in want)
+    if not err <= BACKWARD_TOL * scale:
+        raise AssertionError(f"K2 backward {name}: max error {err}, "
+                             f"largest gradient {scale}")
+    del got, want
+    ms = time_ms(lambda: ra.roi_align_3d_backward_cuda(*args))
+    dev_ms = device_ms(lambda: ra.roi_align_3d_backward_cuda(*args),
+                       KERNEL_CUDA_NAMES["roi_align3d_backward"])
+    plain_ms = time_ms(lambda: ra.roi_align_3d_backward_plain(*args),
+                       iters=2, warmup=0)
+    c = shapes[0][-1]
+    meta = [torch.empty(s, dtype=torch.float32, device="meta")
+            for s in shapes]
+    sel = valid.bool().cpu()
+    r, lv = rois.cpu()[sel].float(), levels.cpu()[sel]
+    taps = axis_taps(r, lv, meta, out, out_d, strides, strides_d, sn)
+    fx, fy, fz = (_fold_counts(*t, pooled, sn).sum(1)
+                  for t, pooled in zip(taps, (out, out, out_d)))
+    adds = int((fx * fy * fz).sum()) * c
+    geo = align_geometry(meta, rois, levels, valid, out, out_d, strides,
+                         strides_d, sn)
+    n_valid = int(sel.sum())
+    nbytes = (geo["touched_bytes"]
+              + n_valid * grad_out[0].numel() * grad_out.element_size()
+              + n_valid * (7 * 4 + 4) + rois.shape[0])
+    b_ms, b_by = bound(nbytes, 2 * adds)
+    return dict(
+        name=name, grad_out_dtype=str(grad_out.dtype).split(".")[-1],
+        rois=rois.shape[0], valid=n_valid, adds=adds,
+        touched_bytes=geo["touched_bytes"], max_abs_grad=scale,
+        ms=ms, device_ms=dev_ms and sum_or_none(dev_ms.values()),
+        device_ms_by_kernel=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, bytes=nbytes, ops=2 * adds, max_abs_err=err,
+        tol=BACKWARD_TOL * scale,
+    )
+
+
+def check_train_step_kernels(captured):
+    """Each launch of one train step, on the arguments it was given
+    there, against its plain version and timed alone.  Each backward
+    launch takes the name of the forward launch whose rois it got."""
+    got = {k: len(v) for k, v in captured.calls.items()}
+    want = {**{k: len(v) for k, v in TRAIN_STEP_CALLS.items()},
+            "roi_align3d_backward": len(TRAIN_STEP_CALLS["roi_align3d"])}
+    if got != want:
+        raise AssertionError(f"launches in the captured train step: {got}, "
+                             f"expected {want}")
+    by_rois = {args[1].data_ptr(): name for name, args in
+               zip(TRAIN_STEP_CALLS["roi_align3d"],
+                   captured.calls["roi_align3d"])}
+    back = [(by_rois[args[2].data_ptr()], args)
+            for args in captured.calls["roi_align3d_backward"]]
+    if sorted(n for n, _ in back) != sorted(TRAIN_STEP_CALLS["roi_align3d"]):
+        raise AssertionError("K2 backward launches do not match the "
+                             "forward launches one to one")
+    import torch
+
+    # the recorded levels are activations that require a gradient
+    with torch.no_grad():
+        return {
+            "nms3d": [nms_case(name, *args) for name, args in
+                      zip(TRAIN_STEP_CALLS["nms3d"],
+                          captured.calls["nms3d"])],
+            "roi_align3d": [align_case(name, args) for name, args in
+                            zip(TRAIN_STEP_CALLS["roi_align3d"],
+                                captured.calls["roi_align3d"])],
+            "roi_align3d_backward": [backward_case(name, args)
+                                     for name, args in back],
+        }
+
+
+def _per_call(calls):
+    return [{k: c[k] for k in ("name", "valid", "ms", "device_ms",
+                               "device_ms_by_kernel", "plain_ms",
+                               "bound_ms", "bound_by")}
+            for c in calls]
+
+
+def _step_sums(calls):
+    """ms, device_ms, plain_ms and the bound summed over one step's
+    launches."""
+    b_ms, b_by = bound(sum(c["bytes"] for c in calls),
+                       sum(c["ops"] for c in calls))
+    return {"ms": sum(c["ms"] for c in calls),
+            "device_ms": sum_or_none(c["device_ms"] for c in calls),
+            "plain_ms": sum(c["plain_ms"] for c in calls),
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+def kernels_line(nms_calls, align_calls, step_calls, main_path,
+                 train_calls, train_path):
     """The {"kernels": [...]} record.  Per kernel: launches from the
-    counted main-path run; ms (CUDA events), device_ms (profiler), plain_ms
-    and the bound summed over one step's launches, each run alone on the
-    arguments the main path gave it; the profiled device time of the same
-    kernel within one step; the largest error of every comparison (phase
-    3 and the step's calls)."""
+    counted run of its path (K1 and K2: the inference main path, with the
+    train path's beside them as train_*; K2's backward: the train path);
+    ms (CUDA events), device_ms (profiler), plain_ms and the bound summed
+    over one step's launches, each run alone on the arguments the path
+    gave it; the profiled device time of the same kernel within one step;
+    the largest error of every comparison (phase 3 and the steps'
+    calls)."""
     profile = main_path["profile"] or {}
+    train_profile = train_path["profile"] or {}
     kernels = []
     for name, src, replaces, checked in (
         ("nms3d", "mrcnn3d_torch/csrc/nms3d.cu",
@@ -830,28 +1365,42 @@ def kernels_line(nms_calls, align_calls, step_calls, main_path):
         calls = step_calls[name]
         checked = checked + ([step_calls["roi_align3d_direct"]]
                              if name == "roi_align3d" else [])
-        b_ms, b_by = bound(sum(c["bytes"] for c in calls),
-                           sum(c["ops"] for c in calls))
+        train = _step_sums(train_calls[name])
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
             "launches": main_path["launches"][name],
             "launches_per_step": main_path["launches_per_step"][name],
-            "max_abs_err": max(c["max_abs_err"] for c in checked + calls),
-            "ms": sum(c["ms"] for c in calls),
-            "device_ms": sum_or_none(c["device_ms"] for c in calls),
-            "plain_ms": sum(c["plain_ms"] for c in calls),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "max_abs_err": max(c["max_abs_err"]
+                               for c in checked + calls + train_calls[name]),
+            **_step_sums(calls), "library_ms": None,
             "profiled_ms_per_step":
                 profile.get("port_kernels_ms", {}).get(name),
             "matched": True,
-            "per_step_calls": [
-                {k: c[k] for k in ("name", "valid", "ms", "device_ms",
-                                   "device_ms_by_kernel", "plain_ms",
-                                   "bound_ms", "bound_by")}
-                for c in calls
-            ],
+            "per_step_calls": _per_call(calls),
+            "train_launches": train_path["launches"][name],
+            "train_launches_per_step": train_path["launches_per_step"][name],
+            **{f"train_{k}": v for k, v in train.items()},
+            "train_profiled_ms_per_step":
+                train_profile.get("port_kernels_ms", {}).get(name),
+            "train_per_step_calls": _per_call(train_calls[name]),
         })
+    calls = train_calls["roi_align3d_backward"]
+    kernels.append({
+        "name": "roi_align3d_backward", "route": "cuda",
+        "source": "mrcnn3d_torch/csrc/roi_align3d.cu", "replaces": None,
+        "note": "no TPU counterpart: the JAX package differentiates its "
+                "dense XLA align (mrcnn3d/ops/roi_align3d.py:461) instead",
+        "launches": train_path["launches"]["roi_align3d_backward"],
+        "launches_per_step":
+            train_path["launches_per_step"]["roi_align3d_backward"],
+        "max_abs_err": max(c["max_abs_err"] for c in calls),
+        **_step_sums(calls), "library_ms": None,
+        "profiled_ms_per_step":
+            train_profile.get("port_kernels_ms", {}).get(
+                "roi_align3d_backward"),
+        "matched": True, "per_step_calls": _per_call(calls),
+    })
     return {"kernels": kernels}
 
 
@@ -911,7 +1460,24 @@ def main():
     emit({"phase": "step_kernels", "ok": True, **step_calls,
           "seconds": time.perf_counter() - t})
 
-    emit(kernels_line(nms_calls, align_calls, step_calls, main_path))
+    t = time.perf_counter()
+    small_train = check_small_train(device)
+    emit({"phase": "small_train", "ok": True, **small_train,
+          "seconds": time.perf_counter() - t})
+
+    t = time.perf_counter()
+    train_path, captured = run_train_path(device)
+    emit({"phase": "train", "ok": True, **train_path,
+          "seconds": time.perf_counter() - t})
+
+    t = time.perf_counter()
+    train_calls = check_train_step_kernels(captured)
+    del captured
+    emit({"phase": "train_step_kernels", "ok": True, **train_calls,
+          "seconds": time.perf_counter() - t})
+
+    emit(kernels_line(nms_calls, align_calls, step_calls, main_path,
+                      train_calls, train_path))
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

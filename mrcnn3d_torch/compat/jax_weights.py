@@ -13,6 +13,11 @@ mmdet names.  Each transform is the inverse of one in
     order D*H*W*C                         -> C*D*H*W
   FrozenBatchNorm scale / bias / mean / var
                                           -> weight / bias / running_*
+
+Every transform is a permutation, so the same function carries any tree
+shaped as the params (a gradient, optax's momentum trace) onto the
+port's names; without "batch_stats" it gives the parameters only.
+`load_train_state` carries a whole JAX train state across.
 """
 from __future__ import annotations
 
@@ -44,13 +49,14 @@ def _fc0(w, roi_shape):
 
 
 def state_dict_from_jax(variables, roi_shape=(3, 7, 7)):
-    """variables: {"params": ..., "batch_stats": ...} nested dicts.
+    """variables: {"params": ..., "batch_stats": ...} nested dicts
+    ("batch_stats" optional: the parameters alone then).
 
     roi_shape: the bbox RoIAlign output (D, H, W), which sets the order
     of the first fc's input.  Returns {name: torch.Tensor}.
     """
     params = variables["params"]
-    stats = variables.get("batch_stats", {})
+    stats = variables.get("batch_stats")
     sd = {}
 
     def put(name, arr):
@@ -64,24 +70,29 @@ def state_dict_from_jax(variables, roi_shape=(3, 7, 7)):
     def bn(p, s, dst):
         put(f"{dst}.weight", p["scale"])
         put(f"{dst}.bias", p["bias"])
-        put(f"{dst}.running_mean", s["mean"])
-        put(f"{dst}.running_var", s["var"])
+        if s is not None:
+            put(f"{dst}.running_mean", s["mean"])
+            put(f"{dst}.running_var", s["var"])
 
-    bp, bs = params["backbone"], stats["backbone"]
+    def sub(s, key):
+        return None if s is None else s[key]
+
+    bp, bs = params["backbone"], sub(stats, "backbone")
     conv(bp["conv1"], "backbone.conv1")
-    bn(bp["bn1"], bs["bn1"], "backbone.bn1")
+    bn(bp["bn1"], sub(bs, "bn1"), "backbone.bn1")
     for name in bp:
         if not name.startswith("layer"):
             continue
         li, bi = name[len("layer"):].split("_")
         dst = f"backbone.layer{li}.{bi}"
-        p, s = bp[name], bs[name]
+        p, s = bp[name], sub(bs, name)
         for n in (1, 2, 3):
             conv(p[f"conv{n}"], f"{dst}.conv{n}")
-            bn(p[f"bn{n}"], s[f"bn{n}"], f"{dst}.bn{n}")
+            bn(p[f"bn{n}"], sub(s, f"bn{n}"), f"{dst}.bn{n}")
         if "downsample_conv" in p:
             conv(p["downsample_conv"], f"{dst}.downsample.0")
-            bn(p["downsample_bn"], s["downsample_bn"], f"{dst}.downsample.1")
+            bn(p["downsample_bn"], sub(s, "downsample_bn"),
+               f"{dst}.downsample.1")
 
     neck = params["neck"]
     i = 0
@@ -133,3 +144,22 @@ def state_dict_from_jax(variables, roi_shape=(3, 7, 7)):
     if "refinement_mask_head" in params:
         mask_head(params["refinement_mask_head"], "refinement_mask_head")
     return sd
+
+
+def load_train_state(state, params, batch_stats, trace, step,
+                     roi_shape=(3, 7, 7)):
+    """Carries a JAX train state into a port `train.step.TrainState`, in
+    place: params and batch_stats (nested numpy dicts) into the model,
+    optax's momentum trace (shaped as the params) into SGD's momentum
+    buffers, and the step count, which fixes the schedule."""
+    model = state.model
+    sd = state_dict_from_jax({"params": params, "batch_stats": batch_stats},
+                             roi_shape)
+    model.load_state_dict(sd, strict=True)
+    buffers = state_dict_from_jax({"params": trace}, roi_shape)
+    for name, p in model.named_parameters():
+        # in the parameter's own storage order (channels_last_3d convs)
+        state.optimizer.state[p]["momentum_buffer"] = \
+            torch.empty_like(p).copy_(buffers[name])
+    state.step = int(step)
+    return state

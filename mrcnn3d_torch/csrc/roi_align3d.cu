@@ -724,6 +724,156 @@ int launch(const Levels& lv, const void* rois, const void* levels,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// Backward: the gradient of the align with respect to the levels.
+//
+// No TPU counterpart: the JAX package differentiates its dense XLA align
+// (mrcnn3d/ops/roi_align3d.py:multi_level_roi_align_3d_dense).  The
+// reference's method (ROIAlignBackward3D): each sample scatters its bin's
+// gradient / sn^3 times its 8 trilinear corner weights, with atomicAdd,
+// into a float32 gradient buffer laid out as the levels,
+// (B, D, H, W, C).  The taps are the forward's: roi_frame, tap and
+// roi_tables, so the gradient lands on the voxels the forward read.
+//
+// Design: one block of 128 threads per (roi, 32 channels, output depth
+// plane); invalid rois return at once.  A block per depth plane keeps
+// the card busy when few rois are valid (the mask aligns of a train step
+// have 30-260) and spreads a roi's atomics over time.  The trilinear
+// weights are per-axis products, so a bin's samples fold per axis into
+// distinct voxels with summed weights (the z planes of roi_tables; the x
+// and y folds below): a bin scatters (z planes) x (y voxels) x (x
+// voxels) adds, 8-27 for sn = 2, in place of sn^3 x 8 = 64.  The block
+// stages the bin gradients of its depth plane and 32 channels in shared
+// memory (rows of a channel read contiguously from (N, C, od, o, o)),
+// then a warp takes one bin and its lanes the channels, so each atomic
+// instruction of a warp adds to one voxel's 32 contiguous floats.
+//
+// What bounds it: the atomics into L2 (a few hundred million adds at
+// the mask align's training shapes); the bytes it must move (each
+// touched gradient voxel and grad_out once) bound it far lower.
+// Accumulating a roi's window in shared memory first, the transpose of
+// the forward's window path, is the step that would cut the atomics.
+// ---------------------------------------------------------------------------
+
+// distinct voxels of one output bin along one axis, with summed weights
+struct Fold {
+  int idx[kMaxPlanes];
+  float w[kMaxPlanes];
+  int n;
+};
+
+// folds the sn taps of bin p (weights 0 add nothing) in tap order
+__device__ void fold_bin(Fold& f, const Lerp* taps, int p, int sn) {
+  f.n = 0;
+  for (int i = 0; i < sn; ++i) {
+    const Lerp t = taps[p * sn + i];
+    const int vs[2] = {t.lo, t.hi};
+    const float ws[2] = {t.wl, t.wh};
+    for (int k = 0; k < 2; ++k) {
+      if (ws[k] == 0.0f) continue;
+      int q = 0;
+      while (q < f.n && f.idx[q] != vs[k]) ++q;
+      if (q == f.n) {
+        f.idx[f.n] = vs[k];
+        f.w[f.n++] = 0.0f;
+      }
+      f.w[q] = __fadd_rn(f.w[q], ws[k]);
+    }
+  }
+}
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// grid (rois, channel blocks, od); grad: one float32 (B, D, H, W, C)
+// buffer per level (lv.ptr), zeroed before the launch.  grad_out
+// (N, C, od, o, o)
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+roi_align3d_backward_kernel(Levels lv, const float* __restrict__ rois,
+                            const int* __restrict__ levels,
+                            const unsigned char* __restrict__ valid,
+                            const T* __restrict__ grad_out, int channels,
+                            int out_size, int out_d, int sn) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ RoiTables tb;
+  __shared__ Fold fx[kMaxTaps], fy[kMaxTaps];
+
+  const int n = blockIdx.x, tid = threadIdx.x;
+  const int o = out_size, oo = o * o, tp = tile_pitch(o);
+  const int cb = channel_block(channels), c0 = blockIdx.y * cb;
+  float box[7];
+#pragma unroll
+  for (int k = 0; k < 7; ++k) box[k] = __ldg(rois + n * 7 + k);
+  const int l = __ldg(levels + n);
+  if (!__ldg(valid + n)) return;
+  const Frame f = roi_frame(lv, box, l, o, out_d);
+  roi_tables(tb, f, o, out_d, sn);
+  if (tid < o) fold_bin(fx[tid], tb.tx, tid, sn);
+  if (tid >= 64 && tid - 64 < o) fold_bin(fy[tid - 64], tb.ty, tid - 64, sn);
+  __syncthreads();
+  if (tb.span[1] < 0 || tb.span[3] < 0) return;  // no x or y tap in range
+
+  float* tile = reinterpret_cast<float*>(smem);  // (cb, tp) bin gradients
+  float* gb = static_cast<float*>(const_cast<void*>(lv.ptr[l])) +
+              static_cast<size_t>(f.b) * f.D * f.H * f.W * channels + c0;
+  const T* go = grad_out + (static_cast<size_t>(n) * channels + c0) *
+                               out_d * oo;
+  const float inv_count = 1.0f / static_cast<float>(sn * sn * sn);
+  const int pz = blockIdx.z;
+  const int j0 = tb.item0[pz], j1 = tb.item0[pz + 1];
+  if (j0 == j1) return;  // no z plane in range
+  for (int e = tid; e < cb * oo; e += blockDim.x) {
+    const int c = e / oo, pos = e - c * oo;
+    tile[c * tp + pos] =
+        to_float(go[(static_cast<size_t>(c) * out_d + pz) * oo + pos]);
+  }
+  __syncthreads();
+  for (int e = tid; e < cb * oo; e += blockDim.x) {
+    const int pos = e / cb, c = e - pos * cb;
+    const float g = tile[c * tp + pos] * inv_count;
+    if (g == 0.0f) continue;
+    const Fold& ay = fy[pos / o];
+    const Fold& ax = fx[pos % o];
+    for (int j = j0; j < j1; ++j) {
+      float* zp =
+          gb + static_cast<size_t>(tb.plane[j]) * f.H * f.W * channels + c;
+      const float gz = g * tb.w[j];
+      for (int a = 0; a < ay.n; ++a) {
+        float* row = zp + static_cast<size_t>(ay.idx[a]) * f.W * channels;
+        const float gzy = gz * ay.w[a];
+        for (int b = 0; b < ax.n; ++b)
+          atomicAdd(row + static_cast<size_t>(ax.idx[b]) * channels,
+                    gzy * ax.w[b]);
+      }
+    }
+  }
+}
+
+template <typename T>
+int launch_backward(const Levels& lv, const void* rois, const void* levels,
+                    const void* valid, const void* grad_out, void* grad,
+                    size_t grad_bytes, int n, int channels, int out_size,
+                    int out_d, int sn, cudaStream_t s) {
+  cudaError_t err = cudaMemsetAsync(grad, 0, grad_bytes, s);
+  if (err != cudaSuccess || n == 0) return static_cast<int>(err);
+  const int cb = channel_block(channels);
+  const int tile = cb * tile_pitch(out_size) * 4;
+  err = cudaFuncSetAttribute(roi_align3d_backward_kernel<T>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             tile);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  roi_align3d_backward_kernel<T>
+      <<<dim3(n, channels / cb, out_d), kThreads, tile, s>>>(
+          lv, static_cast<const float*>(rois),
+          static_cast<const int*>(levels),
+          static_cast<const unsigned char*>(valid),
+          static_cast<const T*>(grad_out), channels, out_size, out_d, sn);
+  return static_cast<int>(cudaGetLastError());
+}
+
 Levels make_levels(const long long* level_ptrs, const int* level_dims,
                    const float* level_scales, int num_levels) {
   Levels lv = {};
@@ -781,6 +931,36 @@ extern "C" int mrcnn3d_roi_align3d(const long long* level_ptrs,
     return launch<__nv_bfloat16>(lv, rois, levels, valid, out, path_rois,
                                  direct, n, channels, out_size, out_d,
                                  sample_num, smem_bytes, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The backward: level_ptrs[L] are float32 (B, D, H, W, C) gradient
+// buffers, parts of one allocation of grad_bytes at grad, which is zeroed
+// first; dims, scales, rois, levels and valid as for mrcnn3d_roi_align3d;
+// grad_out (n, C, od, o, o) of dtype 0 = float32, 1 = bfloat16.  The
+// gradients add up in an order that varies between runs.
+extern "C" int mrcnn3d_roi_align3d_backward(
+    const long long* level_ptrs, const int* level_dims,
+    const float* level_scales, int num_levels, int dtype, int channels,
+    const void* grad_out, const void* rois, const void* levels,
+    const void* valid, void* grad, size_t grad_bytes, int n, int out_size,
+    int out_d, int sample_num, void* stream) {
+  if (num_levels < 1 || num_levels > kMaxLevels || sample_num < 1 ||
+      sample_num > kMaxSamples || out_size * sample_num > kMaxTaps ||
+      out_d < 1 || out_d > kMaxOutD || channels < 1 ||
+      channels % channel_block(channels) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const Levels lv =
+      make_levels(level_ptrs, level_dims, level_scales, num_levels);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch_backward<float>(lv, rois, levels, valid, grad_out, grad,
+                                  grad_bytes, n, channels, out_size, out_d,
+                                  sample_num, s);
+  if (dtype == 1)
+    return launch_backward<__nv_bfloat16>(lv, rois, levels, valid, grad_out,
+                                          grad, grad_bytes, n, channels,
+                                          out_size, out_d, sample_num, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

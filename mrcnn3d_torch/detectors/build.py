@@ -19,10 +19,16 @@ from ..utils.device import resolve_device
 SUPPORTED = ("MaskRCNN3D2Scales",)
 
 
-def build_detector(cfg, dtype=torch.float32, device=None, seed=0):
-    """cfg: full ConfigDict (uses cfg.model).  Returns a Detector3D in
-    eval mode on `device` (the card unless "cpu" is asked for), its
-    weights drawn from `seed`."""
+def build_detector(cfg, dtype=torch.float32, device=None, seed=0,
+                   train=False):
+    """cfg: full ConfigDict (uses cfg.model).  Returns a Detector3D on
+    `device` (the card unless "cpu" is asked for), its weights drawn from
+    `seed`, in channels_last_3d storage.
+
+    train=False: eval mode, no gradients, in `dtype`.  train=True: the
+    training build, float32 parameters that require gradients (bf16
+    compute comes from autocast); the frozen-BN statistics stay buffers
+    and are never updated."""
     device = resolve_device(device)
     m = cfg.model
     kind = m["type"]
@@ -55,8 +61,11 @@ def build_detector(cfg, dtype=torch.float32, device=None, seed=0):
     )
     init_weights(model, torch.Generator().manual_seed(seed))
     model = model.to(
-        device=device, dtype=dtype, memory_format=torch.channels_last_3d
+        device=device, dtype=torch.float32 if train else dtype,
+        memory_format=torch.channels_last_3d,
     )
+    if train:
+        return model.train().requires_grad_(True)
     return model.eval().requires_grad_(False)
 
 

@@ -12,6 +12,18 @@ config's `test_cfg.return_bbox_only` decides whether masks are computed
 `device="cpu"` is passed, and raises when CUDA is missing rather than
 falling back to the CPU.  Weights are random, drawn from `seed`;
 `load_state_dict` on `det.model` replaces them.
+
+Training, on the same terms:
+
+    from mrcnn3d_torch.entry import build_trainer
+    trainer = build_trainer(compute_dtype=torch.bfloat16)  # on the card
+    losses = trainer.step(batch)   # dict of 0-d tensors, "loss" the total
+
+`batch` holds imgs / imgs_2 (B, 3, D, H, W), gt_boxes{,_2} (B, G, 6),
+gt_labels{,_2} (B, G), gt_valid{,_2} (B, G) and gt_masks (B, G, D, H, W)
+at 1.0x (`detectors.pipeline.forward_train`).  The samplers draw from a
+torch.Generator seeded with `seed`; `trainer.state` is the
+`train.step.TrainState` that `train.checkpoint` saves and restores.
 """
 from __future__ import annotations
 
@@ -20,8 +32,10 @@ import os
 
 import torch
 
+from .core.targets import TorchDraws
 from .detectors.build import anchor_cfgs, build_detector
-from .detectors.pipeline import build_anchor_set, simple_test
+from .detectors.pipeline import anchor_sets_for, simple_test
+from .train.step import create_train_state, train_step
 from .utils.config import Config
 from .utils.device import resolve_device
 
@@ -44,13 +58,8 @@ class Flagship:
         """Anchor sets for the (D, H, W) input of each scale."""
         key = tuple(tuple(s) for s in shapes)
         if key not in self._anchor_sets:
-            self._anchor_sets[key] = [
-                build_anchor_set(
-                    self.model.featmap_sizes((d, h, w)), (h, w, 3, d), ac,
-                    self.device,
-                )
-                for (d, h, w), ac in zip(key, anchor_cfgs(self.cfg))
-            ]
+            self._anchor_sets[key] = anchor_sets_for(
+                self.model, anchor_cfgs(self.cfg), key, self.device)
         return self._anchor_sets[key]
 
     def simple_test(self, batch, mark=None):
@@ -78,13 +87,51 @@ def build(cfg_path=DEFAULT_CONFIG, device=None, dtype=torch.float32,
     budgets: when given, nms_pre / nms_post / max_num / max_per_img.
     """
     device = resolve_device(device)
-    if isinstance(cfg_path, dict):
-        cfg = copy.deepcopy(cfg_path)
-    else:
-        cfg = Config.fromfile(cfg_path)
+    cfg = _load_config(cfg_path)
     if budgets is not None:
         for k in ("nms_pre", "nms_post", "max_num"):
             cfg.test_cfg["rpn"][k] = int(budgets)
         cfg.test_cfg["rcnn"]["max_per_img"] = int(budgets)
     model = build_detector(cfg, dtype=dtype, device=device, seed=seed)
     return Flagship(cfg, model, device)
+
+
+def _load_config(cfg_path):
+    """A config file, or a loaded config (copied, not changed)."""
+    if isinstance(cfg_path, dict):
+        return copy.deepcopy(cfg_path)
+    return Config.fromfile(cfg_path)
+
+
+class Trainer:
+    """A training build of the flagship, its train state and the
+    samplers' draws."""
+
+    def __init__(self, state, draws):
+        self.state = state
+        self.draws = draws
+
+    @property
+    def model(self):
+        return self.state.model
+
+    def step(self, batch, mark=None):
+        """One train step; returns the loss dict plus "loss"."""
+        return train_step(self.state, batch, self.draws, mark=mark)
+
+
+def build_trainer(cfg_path=DEFAULT_CONFIG, device=None, seed=0,
+                  compute_dtype=None, iters_per_epoch=None):
+    """The flagship's trainer on `device` (the card unless "cpu").
+
+    Weights and the samplers' draws come from `seed`; compute_dtype
+    torch.bfloat16 runs the step under autocast over float32
+    parameters (None: float32 throughout).  iters_per_epoch (the
+    dataset's length over the batch size) places the config's lr steps;
+    None keeps the warmup alone (`train.step.create_train_state`)."""
+    device = resolve_device(device)
+    cfg = _load_config(cfg_path)
+    model = build_detector(cfg, device=device, seed=seed, train=True)
+    state = create_train_state(model, cfg, compute_dtype, iters_per_epoch)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return Trainer(state, TorchDraws(gen))

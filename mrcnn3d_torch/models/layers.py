@@ -2,7 +2,9 @@
 
 FrozenBatchNorm is the reference's BatchNorm3d under `norm_eval=True`
 (resnet3d.py:480-486): the running statistics are never updated, so the
-layer is an affine map with stored (mean, var).  ConvModule3D keeps the
+layer is an affine map with stored (mean, var); its weight and bias are
+trainable parameters, as the JAX package's `scale` and `bias` are
+(`mrcnn3d/models/layers.py:FrozenBatchNorm`).  ConvModule3D keeps the
 reference's `.conv` child name, so state_dict keys read
 `neck.lateral_convs.0.conv.weight` as in the reference checkpoints.
 """
@@ -13,13 +15,14 @@ from torch import nn
 
 
 class FrozenBatchNorm(nn.Module):
-    """BatchNorm evaluated with stored statistics (never updated)."""
+    """BatchNorm evaluated with stored statistics (never updated); the
+    affine weight and bias train."""
 
     def __init__(self, num_features: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
-        self.register_buffer("weight", torch.ones(num_features))
-        self.register_buffer("bias", torch.zeros(num_features))
+        self.weight = nn.Parameter(torch.ones(num_features))
+        self.bias = nn.Parameter(torch.zeros(num_features))
         self.register_buffer("running_mean", torch.zeros(num_features))
         self.register_buffer("running_var", torch.ones(num_features))
 

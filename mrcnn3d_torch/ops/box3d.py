@@ -1,4 +1,4 @@
-"""6-DoF box geometry and the delta decoder (torch).
+"""6-DoF box geometry and the delta codec (torch).
 
 Same semantics as `mrcnn3d/ops/box3d.py`:
   * "+1 extent" boxes: w = x2 - x1 + 1;
@@ -25,6 +25,43 @@ def box_volume(boxes):
     h = boxes[..., 3] - boxes[..., 1] + 1.0
     d = boxes[..., 5] - boxes[..., 4] + 1.0
     return w * h * d
+
+
+def bbox2delta3d(proposals, gt, means=DELTA_MEANS, stds=DELTA_STDS):
+    """Encode gt boxes as regression deltas against proposals (the
+    inverse of `delta2bbox3d`).  proposals, gt: (..., 6).  Returns
+    (..., 6) float32 deltas."""
+    proposals = proposals.float()
+    gt = gt.float()
+    px = (proposals[..., 0] + proposals[..., 2]) * 0.5
+    py = (proposals[..., 1] + proposals[..., 3]) * 0.5
+    pw = proposals[..., 2] - proposals[..., 0] + 1.0
+    ph = proposals[..., 3] - proposals[..., 1] + 1.0
+    pz = (proposals[..., 4] + proposals[..., 5]) * 0.5
+    pd = proposals[..., 5] - proposals[..., 4] + 1.0
+
+    gx = (gt[..., 0] + gt[..., 2]) * 0.5
+    gy = (gt[..., 1] + gt[..., 3]) * 0.5
+    gw = gt[..., 2] - gt[..., 0] + 1.0
+    gh = gt[..., 3] - gt[..., 1] + 1.0
+    gz = (gt[..., 4] + gt[..., 5]) * 0.5
+    gd = gt[..., 5] - gt[..., 4] + 1.0
+
+    deltas = torch.stack(
+        [
+            (gx - px) / pw,
+            (gy - py) / ph,
+            torch.log(gw / pw),
+            torch.log(gh / ph),
+            (gz - pz) / pd,
+            torch.log(gd / pd),
+        ],
+        dim=-1,
+    )
+    dev = deltas.device
+    means = torch.tensor(means, dtype=torch.float32, device=dev)
+    stds = torch.tensor(stds, dtype=torch.float32, device=dev)
+    return (deltas - means) / stds
 
 
 def delta2bbox3d(

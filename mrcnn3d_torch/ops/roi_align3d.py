@@ -19,17 +19,26 @@ produces) and returns (N, C, out_d, out, out).  For CUDA tensors it
 launches `csrc/roi_align3d.cu` once for all levels (`roi_align_3d_cuda`,
 counted in `launches`, and each valid roi by its path in `path_rois`);
 for CPU tensors it runs `roi_align_3d_plain`.
+
+When a level requires a gradient, the align goes through
+`RoIAlign3DFunction`, differentiable with respect to the levels only
+(the rois are detached boxes in every caller): the forward is the same
+K2 launch, the backward one launch of the backward kernel in the same
+source (`roi_align_3d_backward_cuda`, counted in `backward_launches`),
+or `roi_align_3d_backward_plain` on the CPU.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
 from . import _cuda
 
 launches = 0
+backward_launches = 0
 # per card: int64 (2,) counts of valid rois by the path K2 took for them
 # (window, direct), added to by the kernel itself (no synchronisation)
 path_rois: dict = {}
@@ -96,23 +105,23 @@ def _check_levels(feats_cl):
             )
 
 
-def roi_align_3d_plain(feats_cl, rois, levels, valid, out_size,
-                       out_size_depth, featmap_strides,
-                       featmap_strides_depth, sample_num=2):
-    """Plain version of the kernel, in float32, over roi chunks.
+def _plain_samples(level_shapes, rois, levels, valid, out_size,
+                   out_size_depth, featmap_strides, featmap_strides_depth,
+                   sample_num):
+    """The plain version's samples, over roi chunks: yields (s0, s1,
+    corners, ok) for the rois s0:s1, where corners are the 8 trilinear
+    corners (voxel index into the levels' concatenated (voxels, C) rows,
+    weight), each (m, out_d*sn, out*sn, out*sn), and ok the samples that
+    count (in range on every axis, valid roi).
 
-    feats_cl: list of (B, D, H, W, C) levels; rois (N, 7) float32
-    [b, x1, y1, x2, y2, z1, z2]; levels (N,) int; valid (N,) bool.
-    Returns (N, C, out_d, out, out) in the features' dtype.
-    """
-    _check_levels(feats_cl)
+    level_shapes: the (B, D, H, W, C) shape of each level."""
     dev = rois.device
-    c = feats_cl[0].shape[-1]
+    c = level_shapes[0][-1]
     n = rois.shape[0]
     sn = sample_num
     o, od = out_size, out_size_depth
-    dims = torch.tensor([f.shape[1:4] for f in feats_cl], device=dev)
-    sizes = [f.numel() // c for f in feats_cl]
+    dims = torch.tensor([s[1:4] for s in level_shapes], device=dev)
+    sizes = [math.prod(s[:4]) for s in level_shapes]
     offsets = torch.tensor(
         [sum(sizes[:i]) for i in range(len(sizes))], device=dev
     )
@@ -123,14 +132,11 @@ def roi_align_3d_plain(feats_cl, rois, levels, valid, out_size,
         [1.0 / s for s in featmap_strides_depth], dtype=torch.float32,
         device=dev,
     )
-    flat = torch.cat([f.reshape(-1, c) for f in feats_cl])
     samples = od * sn * (o * sn) ** 2
     chunk = max(1, _PLAIN_CHUNK_BYTES // (3 * samples * c * 4))
-    out = torch.zeros((n, c, od, o, o), dtype=flat.dtype, device=dev)
     for s0 in range(0, n, chunk):
         r = rois[s0:s0 + chunk]
         t = levels[s0:s0 + chunk].long()
-        m = r.shape[0]
         dim_d, dim_h, dim_w = dims[t, 0], dims[t, 1], dims[t, 2]
         sc, scd = inv_xy[t], inv_d[t]
         start_w = r[:, 1] * sc
@@ -149,25 +155,81 @@ def roi_align_3d_plain(feats_cl, rois, levels, valid, out_size,
         base = base[:, None, None, None]
         hh = dim_h[:, None, None, None]
         ww = dim_w[:, None, None, None]
-        acc = None
+        corners = []
         for zi, wz in ((zl, wzl), (zh, wzh)):
             for yi, wy in ((yl, wyl), (yh, wyh)):
                 for xi, wx in ((xl, wxl), (xh, wxh)):
                     idx = base + (
                         zi[:, :, None, None] * hh + yi[:, None, :, None]
                     ) * ww + xi[:, None, None, :]
-                    v = flat[idx.reshape(-1)].reshape(*idx.shape, c).float()
                     w = (wz[:, :, None, None] * wy[:, None, :, None]) \
                         * wx[:, None, None, :]
-                    term = v * w[..., None]
-                    acc = term if acc is None else acc + term
+                    corners.append((idx, w))
         ok = zin[:, :, None, None] & yin[:, None, :, None] \
             & xin[:, None, None, :]
         ok = ok & valid[s0:s0 + chunk, None, None, None]
+        yield s0, s0 + r.shape[0], corners, ok
+
+
+def roi_align_3d_plain(feats_cl, rois, levels, valid, out_size,
+                       out_size_depth, featmap_strides,
+                       featmap_strides_depth, sample_num=2):
+    """Plain version of the kernel, in float32, over roi chunks.
+
+    feats_cl: list of (B, D, H, W, C) levels; rois (N, 7) float32
+    [b, x1, y1, x2, y2, z1, z2]; levels (N,) int; valid (N,) bool.
+    Returns (N, C, out_d, out, out) in the features' dtype.
+    """
+    _check_levels(feats_cl)
+    c = feats_cl[0].shape[-1]
+    sn = sample_num
+    o, od = out_size, out_size_depth
+    flat = torch.cat([f.reshape(-1, c) for f in feats_cl])
+    out = torch.zeros((rois.shape[0], c, od, o, o), dtype=flat.dtype,
+                      device=rois.device)
+    for s0, s1, corners, ok in _plain_samples(
+            [f.shape for f in feats_cl], rois, levels, valid, o, od,
+            featmap_strides, featmap_strides_depth, sn):
+        acc = None
+        for idx, w in corners:
+            v = flat[idx.reshape(-1)].reshape(*idx.shape, c).float()
+            term = v * w[..., None]
+            acc = term if acc is None else acc + term
         acc = torch.where(ok[..., None], acc, 0.0)
-        acc = acc.reshape(m, od, sn, o, sn, o, sn, c).mean(dim=(2, 4, 6))
-        out[s0:s0 + chunk] = acc.permute(0, 4, 1, 2, 3).to(flat.dtype)
+        acc = acc.reshape(s1 - s0, od, sn, o, sn, o, sn, c).mean(
+            dim=(2, 4, 6))
+        out[s0:s1] = acc.permute(0, 4, 1, 2, 3).to(flat.dtype)
     return out
+
+
+def roi_align_3d_backward_plain(grad_out, level_shapes, rois, levels, valid,
+                                out_size, out_size_depth, featmap_strides,
+                                featmap_strides_depth, sample_num=2):
+    """Plain version of the backward kernel: the gradient of
+    `roi_align_3d_plain` with respect to the levels, as explicit
+    `index_add_` of each sample's 8 corner weights times its bin's
+    gradient / sample_num^3 (an out-of-range sample or an invalid roi
+    adds nothing; an edge collapse puts the whole weight on dim - 1).
+
+    grad_out (N, C, out_d, out, out); level_shapes: the (B, D, H, W, C)
+    shape of each level.  Returns float32 (B, D, H, W, C) gradients."""
+    c = level_shapes[0][-1]
+    sn = sample_num
+    sizes = [math.prod(s[:4]) for s in level_shapes]
+    grad = torch.zeros((sum(sizes), c), dtype=torch.float32,
+                       device=rois.device)
+    for s0, s1, corners, ok in _plain_samples(
+            level_shapes, rois, levels, valid, out_size, out_size_depth,
+            featmap_strides, featmap_strides_depth, sn):
+        g = grad_out[s0:s1].float().permute(0, 2, 3, 4, 1) / sn**3
+        for axis in (1, 2, 3):
+            g = g.repeat_interleave(sn, dim=axis)
+        g = torch.where(ok[..., None], g, 0.0)
+        for idx, w in corners:
+            grad.index_add_(0, idx.reshape(-1),
+                            (g * w[..., None]).reshape(-1, c))
+    return [part.reshape(s) for part, s in
+            zip(torch.split(grad, sizes), level_shapes)]
 
 
 def _levels_args(feats_cl, featmap_strides, featmap_strides_depth):
@@ -330,6 +392,97 @@ def sample_taps_cuda(feats_cl, rois, levels, out_size, out_size_depth,
     return lo, hi, wl, wh, in_range
 
 
+@functools.cache
+def _backward_fn():
+    return _kernel("mrcnn3d_roi_align3d_backward", [
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_size_t,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ])
+
+
+def roi_align_3d_backward_cuda(grad_out, level_shapes, rois, levels, valid,
+                               out_size, out_size_depth, featmap_strides,
+                               featmap_strides_depth, sample_num=2):
+    """K2's backward: the same function as `roi_align_3d_backward_plain`,
+    one launch (the float32 gradient buffer zeroed, then the scatter
+    kernel).  Float atomics add in an order that changes from run to run,
+    so the result varies in its last bits."""
+    global backward_launches
+    dev = rois.device
+    dtype = grad_out.dtype
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"roi_align_3d_backward_cuda takes float32 or "
+                         f"bfloat16, not {dtype}")
+    if not all(t.is_cuda and t.device == dev
+               for t in (grad_out, rois, levels, valid)):
+        raise ValueError("roi_align_3d_backward_cuda takes CUDA tensors on "
+                         "one card")
+    n = rois.shape[0]
+    c = level_shapes[0][-1]
+    if tuple(grad_out.shape) != (n, c, out_size_depth, out_size, out_size):
+        raise ValueError(f"grad_out {tuple(grad_out.shape)} does not match "
+                         f"{n} rois of {c} channels")
+    cb = min(c, CHANNEL_BLOCK)
+    if c % cb or len(level_shapes) > 8 or not 1 <= sample_num <= 4 \
+            or out_size * sample_num > 64 or not 1 <= out_size_depth <= 32 \
+            or cb * (out_size * out_size | 1) * 4 > 200 * 1024:
+        raise ValueError("a block's channels must divide them; at most 8 "
+                         "levels, 1..4 samples per bin, out_size * "
+                         "sample_num <= 64, out_size_depth <= 32")
+    # held in locals until the launch is queued: a temporary freed before
+    # the kernel reads it could be handed to another tensor on the stream
+    grad_out = grad_out.contiguous()
+    rois = rois.float().contiguous()
+    levels = levels.to(torch.int32).contiguous()
+    valid = valid.to(torch.bool).contiguous()
+    sizes = [math.prod(s) for s in level_shapes]
+    grad = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    parts = [p.view(s) for p, s in zip(torch.split(grad, sizes),
+                                       level_shapes)]
+    status = _backward_fn()(
+        *_levels_args(parts, featmap_strides, featmap_strides_depth),
+        _DTYPE_CODES[dtype], c, grad_out.data_ptr(), rois.data_ptr(),
+        levels.data_ptr(), valid.data_ptr(), grad.data_ptr(),
+        grad.numel() * 4, n, out_size, out_size_depth, sample_num,
+        _cuda.stream_ptr(dev),
+    )
+    _cuda.check(status, "roi_align3d_backward")
+    backward_launches += 1
+    return parts
+
+
+class RoIAlign3DFunction(torch.autograd.Function):
+    """The multi-level align, differentiable with respect to the levels.
+
+    apply(rois, levels, valid, geometry, *feats_cl): geometry is
+    (out_size, out_size_depth, featmap_strides, featmap_strides_depth,
+    sample_num); feats_cl the (B, D, H, W, C) levels.  On CUDA tensors
+    the forward is K2 and the backward its backward kernel; on the CPU
+    the plain versions.  The gradient reaches each level in its own
+    dtype, accumulated in float32."""
+
+    @staticmethod
+    def forward(ctx, rois, levels, valid, geometry, *feats_cl):
+        fn = roi_align_3d_cuda if rois.is_cuda else roi_align_3d_plain
+        out = fn(list(feats_cl), rois, levels, valid, *geometry)
+        ctx.save_for_backward(rois, levels, valid)
+        ctx.geometry = geometry
+        ctx.levels = [(f.shape, f.dtype) for f in feats_cl]
+        return out
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        rois, levels, valid = ctx.saved_tensors
+        fn = (roi_align_3d_backward_cuda if grad_out.is_cuda
+              else roi_align_3d_backward_plain)
+        grads = fn(grad_out.contiguous(), [s for s, _ in ctx.levels], rois,
+                   levels, valid, *ctx.geometry)
+        return (None, None, None, None,
+                *(g.to(dtype) for g, (_, dtype) in zip(grads, ctx.levels)))
+
+
 def channels_last_levels(feats):
     """NCDHW levels -> contiguous (B, D, H, W, C) views (no copy for
     channels_last_3d storage)."""
@@ -340,12 +493,18 @@ def multi_level_roi_align_3d(feats, rois, out_size, out_size_depth,
                              featmap_strides, featmap_strides_depth,
                              sample_num=2, finest_scale=56, valid=None):
     """feats: list of NCDHW levels; rois (N, 7); valid (N,) bool or None.
-    Returns (N, C, out_d, out, out); invalid rois give zeros."""
+    Returns (N, C, out_d, out, out); invalid rois give zeros.  Goes
+    through `RoIAlign3DFunction` when a level requires a gradient."""
     feats_cl = channels_last_levels(feats)
+    rois = rois.detach()
     levels = map_roi_levels(rois, len(feats), finest_scale)
     if valid is None:
         valid = torch.ones(rois.shape[0], dtype=torch.bool,
                            device=rois.device)
+    geometry = (out_size, out_size_depth, featmap_strides,
+                featmap_strides_depth, sample_num)
+    if torch.is_grad_enabled() and any(f.requires_grad for f in feats_cl):
+        return RoIAlign3DFunction.apply(rois, levels, valid, geometry,
+                                        *feats_cl)
     fn = roi_align_3d_cuda if rois.is_cuda else roi_align_3d_plain
-    return fn(feats_cl, rois, levels, valid, out_size, out_size_depth,
-              featmap_strides, featmap_strides_depth, sample_num)
+    return fn(feats_cl, rois, levels, valid, *geometry)

@@ -9,7 +9,10 @@ Tolerances: keep masks exactly equal; RoIAlign 1e-4 in float32 and, in
 bfloat16, 2e-2 or one bf16 step (one rounding of the output; the sums run
 in float32 in both versions, in another order); the sample taps (voxels
 and weights) exactly equal; the small pipeline and the mask stage 2e-3
-against the CPU.
+against the CPU.  K2's backward: float32 gradients within 1e-4 of the
+largest (float atomics add in an order that varies), bfloat16 levels'
+gradients within one bf16 rounding; the small train step as
+`chip_smoke.check_small_train` states.
 """
 import pytest
 import torch
@@ -271,3 +274,133 @@ def test_small_pipeline_card_vs_cpu(cuda):
 
     result = chip_smoke.check_small_pipeline(cuda)
     assert result["rpn"]["detections"] > 4
+
+
+# ---------------------------------------------------------------------------
+# K2's backward and the train step
+# ---------------------------------------------------------------------------
+
+
+def _backward_matches(got, want, tol=1e-4):
+    """float32 gradients within tol of the largest (float atomics add in
+    an order that varies)."""
+    scale = max(float(w.abs().max()) for w in want)
+    assert scale > 0
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and g.shape == w.shape
+        assert float((g - w).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("out,out_d", [(7, 3), (14, 10)])
+def test_roi_align_backward_kernel_matches_plain(cuda, dtype, out, out_d):
+    """Rois over every level, with edge crossings, degenerate extents and
+    invalid rois; with no valid roi the gradient is zero."""
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    shapes = [(2, 16 >> i, 64 >> i, 64 >> i, 64) for i in range(4)]
+    rois = _rois(gen, 300, cuda)
+    valid = torch.rand((300,), generator=gen, device=cuda) > 0.2
+    levels = ra.map_roi_levels(rois, 4)
+    assert set(levels[valid].tolist()) == {0, 1, 2, 3}
+    grad = torch.randn((300, 64, out_d, out, out), generator=gen,
+                       device=cuda).to(dtype)
+    args = (grad, shapes, rois, levels, valid, out, out_d, STRIDES,
+            STRIDES_D, 2)
+    before = ra.backward_launches
+    got = ra.roi_align_3d_backward_cuda(*args)
+    assert ra.backward_launches == before + 1
+    _backward_matches(got, ra.roi_align_3d_backward_plain(*args))
+    none = ra.roi_align_3d_backward_cuda(grad, shapes, rois, levels,
+                                         torch.zeros_like(valid), out, out_d,
+                                         STRIDES, STRIDES_D, 2)
+    assert not any(bool(g.any()) for g in none)
+
+
+@pytest.mark.parametrize("kind", ["proposals", "direct"])
+def test_roi_align_backward_main_geometry(cuda, kind):
+    """At mask geometry on the 1.0x main path's levels, rois that K2's
+    forward stages in its window and rois it reads directly."""
+    import chip_smoke
+
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    shapes = [tuple(f.shape) for f in _main_levels(gen, torch.bfloat16,
+                                                   cuda)]
+    if kind == "direct":
+        rois = chip_smoke.direct_rois(gen, 1000, (64, 512, 512), cuda)
+    else:
+        boxes, _, _ = chip_smoke.proposal_boxes(gen, 1000, (64, 512, 512),
+                                                cuda)
+        rois = torch.cat([torch.zeros_like(boxes[:, :1]), boxes], 1)
+    valid = torch.ones(1000, dtype=torch.bool, device=cuda)
+    levels = ra.map_roi_levels(rois, 4)
+    grad = torch.randn((1000, 64, 10, 14, 14), generator=gen,
+                       device=cuda).to(torch.bfloat16)
+    args = (grad, shapes, rois, levels, valid, 14, 10, STRIDES, STRIDES_D,
+            2)
+    _backward_matches(ra.roi_align_3d_backward_cuda(*args),
+                      ra.roi_align_3d_backward_plain(*args))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_function_gradient_matches_plain_autograd(cuda, dtype):
+    """RoIAlign3DFunction on the card (K2 and its backward, one launch
+    each) against torch.autograd of the plain version on the CPU in
+    float32, on NCDHW channels_last_3d levels as the detector gives
+    them; bfloat16 levels get a bfloat16 gradient (one rounding)."""
+    from mrcnn3d_torch.ops.roi_align3d import multi_level_roi_align_3d
+
+    gen = torch.Generator().manual_seed(10)
+    base = [torch.randn((2, 8, 16 >> i, 64 >> i, 64 >> i), generator=gen)
+            for i in range(4)]
+    rois = _rois(torch.Generator(device=cuda).manual_seed(11), 60, cuda)
+    valid = torch.rand((60,), generator=gen) > 0.2
+    weights = torch.randn((60, 8, 3, 7, 7), generator=gen)
+    feats = [b.to(cuda, dtype).contiguous(
+        memory_format=torch.channels_last_3d).requires_grad_(True)
+        for b in base]
+    launches, backward = ra.launches, ra.backward_launches
+    out = multi_level_roi_align_3d(feats, rois, 7, 3, STRIDES, STRIDES_D, 2,
+                                   valid=valid.to(cuda))
+    (out.float() * weights.to(cuda)).sum().backward()
+    assert (ra.launches, ra.backward_launches) == (launches + 1,
+                                                   backward + 1)
+    leaves = [b.to(dtype).float().permute(0, 2, 3, 4, 1).requires_grad_(True)
+              for b in base]
+    levels = ra.map_roi_levels(rois.cpu(), 4)
+    want = ra.roi_align_3d_plain(leaves, rois.cpu(), levels, valid, 7, 3,
+                                 STRIDES, STRIDES_D, 2)
+    (want * weights).sum().backward()
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -8
+    scale = max(float(leaf.grad.abs().max()) for leaf in leaves)
+    for f, leaf in zip(feats, leaves):
+        assert f.grad.dtype == dtype
+        got = f.grad.float().cpu().permute(0, 2, 3, 4, 1)
+        assert float((got - leaf.grad).abs().max()) <= tol * scale
+
+
+def test_train_step_on_card(cuda):
+    """One train step of the narrow flagship on the card: 2 K1, 5 K2 and
+    5 backward launches, finite losses, every parameter group moved."""
+    import chip_smoke
+    from mrcnn3d_torch.entry import build_trainer
+
+    trainer = build_trainer(chip_smoke.small_train_config(), device=cuda)
+    batch = {k: torch.from_numpy(v).to(cuda)
+             for k, v in chip_smoke.small_train_batch(3).items()}
+    before = {n: p.detach().clone()
+              for n, p in trainer.model.named_parameters()}
+    counts = (nms3d.launches, ra.launches, ra.backward_launches)
+    losses = trainer.step(batch)
+    after = (nms3d.launches, ra.launches, ra.backward_launches)
+    assert tuple(a - b for a, b in zip(after, counts)) == (2, 5, 5)
+    assert all(bool(torch.isfinite(v)) for v in losses.values())
+    moved = {n.split(".")[0] for n, p in trainer.model.named_parameters()
+             if not torch.equal(p.detach(), before[n])}
+    assert moved == {n.split(".")[0] for n in before}
+
+
+def test_small_train_card_vs_cpu(cuda):
+    import chip_smoke
+
+    result = chip_smoke.check_small_train(cuda)
+    assert result["draws"] == 20 and max(result["positives"]) > 0

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither JAX nor the JAX package,
-and its entry point never falls back to the CPU on its own."""
+"""The port stands alone: it imports neither JAX nor the JAX package
+(its training modules included), and its entry points never fall back to
+the CPU on its own."""
 import subprocess
 import sys
 import textwrap
@@ -23,13 +24,26 @@ _SCRIPT = textwrap.dedent(
     det = build(device="cpu")
     assert det.model.num_scales == 2 and det.model.with_refinement_mask
     assert next(det.model.parameters()).device.type == "cpu"
+    for name in ("core.targets", "ops.losses", "train.optim", "train.step",
+                 "train.checkpoint"):
+        assert "mrcnn3d_torch." + name in names, name
+    import chip_smoke
+    from mrcnn3d_torch.entry import build_trainer
+    trainer = build_trainer(chip_smoke.small_train_config(), device="cpu")
+    batch = {k: torch.from_numpy(v)
+             for k, v in chip_smoke.small_train_batch(3).items()}
+    losses = trainer.step(batch)
+    assert trainer.state.step == 1 and len(losses) == 11
+    assert all(bool(torch.isfinite(v)) for v in losses.values())
     torch.cuda.is_available = lambda: False
-    try:
-        build(device=None)
-    except RuntimeError:
-        pass
-    else:
-        raise AssertionError("build(device=None) ran without CUDA")
+    for entry in (build, build_trainer):
+        try:
+            entry(device=None)
+        except RuntimeError:
+            pass
+        else:
+            raise AssertionError(f"{entry.__name__}(device=None) ran "
+                                 "without CUDA")
     print(len(names), "modules")
     """
 )
@@ -41,7 +55,7 @@ def test_port_imports_and_builds_without_jax():
         text=True, timeout=300,
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.split()[0]) >= 15, proc.stdout
+    assert int(proc.stdout.split()[0]) >= 21, proc.stdout
 
 
 def test_no_jax_import_lines():

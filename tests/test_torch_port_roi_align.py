@@ -1,21 +1,29 @@
 """PyTorch port vs JAX: multi-level RoIAlign3D (plain version of the K2
-kernel).
+kernel) and its backward.
 
 References: JAX `multi_level_roi_align_3d` at atol 1e-5 (float32 sums
 in another order), and the Pallas kernel `roi_align_3d_pallas` in
 interpret mode at atol 2e-4 for rois inside its window (its weights are
-2^-16 fixed point, as in tests/test_roi_align3d.py).
+2^-16 fixed point, as in tests/test_roi_align3d.py).  The backward
+(`roi_align_3d_backward_plain`, the plain version of K2's backward
+kernel) against torch.autograd of the plain forward and against
+`jax.vjp` of the JAX training align `multi_level_roi_align_3d_dense`,
+within 1e-5 of each level's largest gradient: a voxel of a large roi on
+a coarse level sums thousands of float32 terms, in another order.
 """
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from mrcnn3d.ops.roi_align3d import map_roi_levels as j_map_roi_levels
 from mrcnn3d.ops.roi_align3d import multi_level_roi_align_3d as j_align
+from mrcnn3d.ops.roi_align3d import multi_level_roi_align_3d_dense as j_dense
 from mrcnn3d.ops.roi_align3d_pallas import roi_align_3d_pallas
 from mrcnn3d_torch.ops.roi_align3d import map_roi_levels
+from mrcnn3d_torch.ops import roi_align3d as ra
 from mrcnn3d_torch.ops.roi_align3d import multi_level_roi_align_3d
 
 STRIDES = [4, 8, 16, 32]
@@ -99,3 +107,80 @@ def test_plain_matches_pallas_interpret():
     ).numpy()
     np.testing.assert_allclose(np.transpose(got, (0, 2, 3, 4, 1)), want,
                                atol=2e-4)
+
+
+def _backward_case(seed, out, out_d):
+    """Levels, rois (every level, edge, degenerate, invalid), valid and a
+    random output gradient (N, C, out_d, out, out)."""
+    rng = np.random.RandomState(seed)
+    feats = _pyramid(rng)
+    rois = _rois(rng, 64)
+    valid = rng.rand(64) > 0.2
+    grad = rng.randn(64, feats[0].shape[-1], out_d, out, out).astype(
+        np.float32)
+    levels = map_roi_levels(torch.from_numpy(rois), 4)
+    assert set(levels[torch.from_numpy(valid)].tolist()) == {0, 1, 2, 3}
+    return feats, rois, valid, grad, levels
+
+
+@pytest.mark.parametrize("seed,out,out_d", [(3, 7, 3), (4, 14, 10)])
+def test_backward_plain_matches_autograd(seed, out, out_d):
+    feats, rois, valid, grad, levels = _backward_case(seed, out, out_d)
+    args = (torch.from_numpy(rois), levels, torch.from_numpy(valid), out,
+            out_d, STRIDES, STRIDES_D, 2)
+    leaves = [torch.from_numpy(f).requires_grad_(True) for f in feats]
+    ra.roi_align_3d_plain(leaves, *args).backward(torch.from_numpy(grad))
+    got = ra.roi_align_3d_backward_plain(
+        torch.from_numpy(grad), [f.shape for f in feats], *args)
+    for lvl, (g, leaf) in enumerate(zip(got, leaves)):
+        assert g.dtype == torch.float32 and g.shape == leaf.shape
+        want = leaf.grad.numpy()
+        np.testing.assert_allclose(g.numpy(), want, rtol=0,
+                                   atol=1e-5 * np.abs(want).max(),
+                                   err_msg=f"level {lvl}")
+        assert g.abs().sum() > 0, f"level {lvl} got no gradient"
+
+
+@pytest.mark.parametrize("seed,out,out_d", [(5, 7, 3), (6, 14, 10)])
+def test_backward_plain_matches_jax_dense_vjp(seed, out, out_d):
+    """The JAX training path differentiates the dense align with XLA."""
+    feats, rois, valid, grad, levels = _backward_case(seed, out, out_d)
+    _, vjp = jax.vjp(
+        lambda *f: j_dense(list(f), jnp.asarray(rois), out, out_d, STRIDES,
+                           STRIDES_D, 2, valid=jnp.asarray(valid)),
+        *[jnp.asarray(f) for f in feats])
+    want = vjp(jnp.asarray(np.transpose(grad, (0, 2, 3, 4, 1))))
+    got = ra.roi_align_3d_backward_plain(
+        torch.from_numpy(grad), [f.shape for f in feats],
+        torch.from_numpy(rois), levels, torch.from_numpy(valid), out, out_d,
+        STRIDES, STRIDES_D, 2)
+    for lvl, (g, w) in enumerate(zip(got, want)):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=0,
+                                   atol=1e-5 * np.abs(w).max(),
+                                   err_msg=f"level {lvl}")
+
+
+def test_function_routes_by_grad_mode():
+    """With a level that requires a gradient the align goes through
+    RoIAlign3DFunction (gradient = the plain backward, in the levels'
+    NCDHW layout); under no_grad it does not build a graph."""
+    feats, rois, valid, grad, levels = _backward_case(7, 7, 3)
+    cf = [f.requires_grad_(True) for f in _to_cf(feats)]
+    out = multi_level_roi_align_3d(cf, torch.from_numpy(rois), 7, 3, STRIDES,
+                                   STRIDES_D, 2, valid=torch.from_numpy(valid))
+    assert out.grad_fn is not None
+    out.backward(torch.from_numpy(grad))
+    want = ra.roi_align_3d_backward_plain(
+        torch.from_numpy(grad), [f.shape for f in feats],
+        torch.from_numpy(rois), levels, torch.from_numpy(valid), 7, 3,
+        STRIDES, STRIDES_D, 2)
+    for leaf, w in zip(cf, want):
+        np.testing.assert_array_equal(
+            leaf.grad.permute(0, 2, 3, 4, 1).numpy(), w.numpy())
+    with torch.no_grad():
+        again = multi_level_roi_align_3d(
+            cf, torch.from_numpy(rois), 7, 3, STRIDES, STRIDES_D, 2,
+            valid=torch.from_numpy(valid))
+    assert again.grad_fn is None
+    assert torch.equal(again, out.detach())
