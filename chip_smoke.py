@@ -52,6 +52,25 @@ Phases, each printing one JSON line with its seconds:
                  against its plain version and timed alone: K1 and K2 as
                  in phase 6, K2's backward within 1e-4 of the largest
                  gradient (float atomics add in another order).
+ 10. small_tiled -- whole-volume tiled inference of the narrow config
+                 (budgets 64, masks on) over a seeded 16x64x64 volume in
+                 27 tiles, 8 detections kept per tile, on the card
+                 (kernels) and on the CPU (plain versions) from the same
+                 weights: per-class counts equal, rows within 2e-3,
+                 pasted masks equal on every voxel whose probability lies
+                 farther than 1e-2 from 0.25; the twin derived on the
+                 card within 1e-5 of the CPU's in float32.
+ 11. wholevol -- the flagship at full width, bfloat16, every budget 2000,
+                 masks on, over bench.py's whole volume: a host float32
+                 240x512x512 volume, 512x512x64 tiles at 0.25 overlap (5
+                 tiles), 256 detections kept per tile; 1 first and 3
+                 timed calls with the counters zeroed just before and
+                 read just after (K1 15, K2 20 launches a volume), each
+                 phase's timer; one profiled sweep; the result scored by
+                 CocoEval3D (bbox and segm) against a seeded gt.
+ 12. wholevol_tile_kernels -- the K1 and K2 launches of one tile of that
+                 sweep, recorded with their arguments, against the plain
+                 versions and timed alone, as in phase 6.
 Then the kernels line, the card line and, last, the result line
 {"ok": true, "device": {...}}.  Any failure raises: the exit code is then
 not 0 and no result line is printed.
@@ -1325,6 +1344,342 @@ def check_train_step_kernels(captured):
         }
 
 
+# ---------------------------------------------------------------------------
+# phase 10: small tiled inference, card against CPU
+# ---------------------------------------------------------------------------
+
+
+# the small sweep: a 16x64x64 volume in 27 tiles of 8x32x32 (+ 12x48x48)
+SMALL_TILED_SHAPE = (16, 64, 64)
+SMALL_TILED = dict(patch_d=8, patch_hw=32, overlap=0.5, max_dets_per_tile=8)
+# pasted masks must agree on every voxel whose probability (the reference
+# side's, resized to the box) lies farther than this from the threshold
+MASK_PROB_BAND = 1e-2
+TWIN_TOL = 1e-5
+
+
+def small_tiled_volume(seed=5, scale=1.0):
+    """The small sweep's normalised (D, H, W, 3) float32 volume."""
+    import numpy as np
+
+    vol = np.random.RandomState(seed).randn(*SMALL_TILED_SHAPE, 3)
+    return (vol * scale).astype(np.float32)
+
+
+class MaskProbs:
+    """Within the block, records the resized probabilities behind every
+    mask a tiled driver realises, keyed by the id of the mask it returns,
+    by wrapping `box_mask_from_probs` in `module`'s namespace (the port's
+    `apis.tiled` by default)."""
+
+    def __init__(self, module=None):
+        self.module = module
+
+    def __enter__(self):
+        from mrcnn3d_torch.eval.masks import _trilinear_resize, box_extent
+
+        if self.module is None:
+            from mrcnn3d_torch.apis import tiled as module
+            self.module = module
+        self.probs = {}
+        self._fn = fn = self.module.box_mask_from_probs
+
+        def record(probs, box, thr=0.25):
+            mask = fn(probs, box, thr)
+            self.probs[id(mask)] = _trilinear_resize(probs, box_extent(box))
+            return mask
+
+        self.module.box_mask_from_probs = record
+        return self
+
+    def __exit__(self, *exc):
+        self.module.box_mask_from_probs = self._fn
+        return False
+
+
+def _paste(box, values, shape):
+    """`eval.masks.paste_mask_3d` of float values (the probabilities)."""
+    import numpy as np
+
+    out = np.zeros(shape, values.dtype)
+    x0, y0, z0 = (max(int(box[i]), 0) for i in (0, 1, 4))
+    d, h, w = values.shape
+    z1, y1, x1 = (min(a + n, m) for a, n, m in
+                  zip((z0, y0, x0), (d, h, w), shape))
+    if z1 > z0 and y1 > y0 and x1 > x0:
+        out[z0:z1, y0:y1, x0:x1] = values[:z1 - z0, :y1 - y0, :x1 - x0]
+    return out
+
+
+def compare_tiled(a, b, probs_b, atol, what, thr=0.25):
+    """Two tiled results (per_class, segms): per-class counts equal; each
+    row (box and score) of `a` within atol of its own row of `b`, one to
+    one (the merged order of two scores equal to float noise is noise
+    too); pasted masks of each pair equal on every voxel whose probability
+    in `b` (probs_b: MaskProbs.probs of b's run) lies farther than
+    MASK_PROB_BAND from thr.  Returns (largest row difference, voxels
+    within the band, voxels that differ)."""
+    import numpy as np
+
+    from mrcnn3d_torch.eval.masks import paste_mask_3d
+
+    err, band, differ = 0.0, 0, 0
+    for c, (ra, rb) in enumerate(zip(a[0], b[0])):
+        if ra.shape != rb.shape:
+            raise AssertionError(f"{what}: class {c + 1} has {len(ra)} "
+                                 f"detections against {len(rb)}")
+        if not len(ra):
+            continue
+        dist = np.abs(ra[:, None] - rb[None]).max(-1)
+        pair = dist.argmin(1)
+        e = float(dist[np.arange(len(ra)), pair].max())
+        if not e <= atol or len(set(pair.tolist())) != len(ra):
+            raise AssertionError(f"{what}: class {c + 1} rows differ by {e}")
+        err = max(err, e)
+        for sa, sb in zip(a[1][c], (b[1][c][j] for j in pair)):
+            shape = tuple(sb["shape"])
+            if tuple(sa["shape"]) != shape:
+                raise AssertionError(f"{what}: mask frames differ")
+            pb = _paste(sb["box"], probs_b[id(sb["mask"])], shape)
+            near = np.abs(pb - thr) <= MASK_PROB_BAND
+            diff = (paste_mask_3d(sa["box"], sa["mask"], shape)
+                    != paste_mask_3d(sb["box"], sb["mask"], shape))
+            if (diff & ~near).any():
+                raise AssertionError(
+                    f"{what}: {int((diff & ~near).sum())} mask voxels "
+                    f"differ outside the band")
+            band += int(near.sum())
+            differ += int(diff.sum())
+    return err, band, differ
+
+
+def small_tiled_run(det, scale=1.0):
+    """The small sweep with `det`: (result, MaskProbs.probs)."""
+    with MaskProbs() as rec:
+        out = det.tiled(dict(imgs=small_tiled_volume(scale=scale)),
+                        **SMALL_TILED)
+    return out, rec.probs
+
+
+def check_small_tiled(device):
+    """The small sweep on the card (kernels) against the CPU (plain
+    versions), from the same weights; and the twin the card derives
+    against the CPU's, in float32."""
+    import torch
+
+    from mrcnn3d_torch.apis.tiled import plan_sweep
+    from mrcnn3d_torch.entry import build
+    from mrcnn3d_torch.ops.resize3d import resize_trilinear_3d
+
+    cfg = small_config()
+    gpu = build(cfg, device=device, budgets=SMALL_BUDGET)
+    cpu = build(cfg, device="cpu", budgets=SMALL_BUDGET)
+    a, _ = small_tiled_run(gpu)
+    b, probs = small_tiled_run(cpu)
+    err, band, differ = compare_tiled(a, b, probs, PIPELINE_ATOL,
+                                      "small tiled")
+    n = sum(len(r) for r in b[0])
+    if n < 4:
+        raise AssertionError(f"small tiled: {n} detections, vacuous")
+    vol = torch.from_numpy(small_tiled_volume()).permute(3, 0, 1, 2)[None]
+    twin = plan_sweep(SMALL_TILED_SHAPE, SMALL_TILED["patch_hw"],
+                      SMALL_TILED["patch_d"], SMALL_TILED["overlap"],
+                      cfg.get("upscale_factor", 1.5)).twin_shape
+    twin_err = float((resize_trilinear_3d(vol.to(device), twin).cpu()
+                      - resize_trilinear_3d(vol, twin)).abs().max())
+    if not twin_err <= TWIN_TOL:
+        raise AssertionError(f"small tiled: twins differ by {twin_err}")
+    return dict(detections=n, per_class=[len(r) for r in b[0]],
+                max_abs_err=err, mask_voxels_in_band=band,
+                mask_voxels_differ=differ, band=MASK_PROB_BAND,
+                twin_max_abs_err=twin_err, tol=PIPELINE_ATOL,
+                twin_tol=TWIN_TOL, **SMALL_TILED)
+
+
+# ---------------------------------------------------------------------------
+# phase 11: a whole volume at full width, and its 3-D COCO scores
+# ---------------------------------------------------------------------------
+
+
+# bench.py's whole-volume geometry (bench.py:461-484): a 240x512x512 host
+# float32 volume, 512x512x64 tiles at 0.25 overlap (5 tiles)
+WHOLEVOL_SHAPE = (240, 512, 512)
+WHOLEVOL = dict(patch_hw=512, patch_d=64, overlap=0.25, max_dets_per_tile=256)
+WHOLEVOL_TILES = 5
+SEGM_EVAL_BUDGET_S = 30.0
+SEGM_EVAL_TOP = 100
+
+
+def wholevol_gt(seed=17, n=6):
+    """A seeded gt of n lesions in the whole volume: COCO-3D dict with
+    xywhzd boxes and full-frame uint8 masks (an ellipsoid in each box)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    d, h, w = WHOLEVOL_SHAPE
+    anns = []
+    for i in range(n):
+        ext = np.array([rng.randint(4, 13), rng.randint(4, 13),
+                        rng.randint(2, 7)])              # x, y, z extents
+        lo = np.array([rng.randint(0, w - 13), rng.randint(0, h - 13),
+                       rng.randint(0, d - 7)])
+        mask = np.zeros(WHOLEVOL_SHAPE, np.uint8)
+        zz, yy, xx = np.ogrid[:ext[2], :ext[1], :ext[0]]
+        c = (ext - 1) / 2.0
+        inside = (((xx - c[0]) / (c[0] + .5)) ** 2
+                  + ((yy - c[1]) / (c[1] + .5)) ** 2
+                  + ((zz - c[2]) / (c[2] + .5)) ** 2) <= 1.0
+        mask[lo[2]:lo[2] + ext[2], lo[1]:lo[1] + ext[1],
+             lo[0]:lo[0] + ext[0]] = inside
+        anns.append(dict(id=i + 1, image_id=0, category_id=1,
+                         bbox=[float(lo[0]), float(lo[1]), float(ext[0]),
+                               float(ext[1]), float(lo[2]), float(ext[2])],
+                         segmentation=mask))
+    return dict(images=[dict(id=0)], annotations=anns,
+                categories=[dict(id=1)])
+
+
+def score_wholevol(result, gt):
+    """CocoEval3D, bbox and segm, of a whole-volume result against gt.
+    The segm evaluation pastes every detection into the full frame; when
+    the time it would take, extrapolated from pasting the first few, is
+    over SEGM_EVAL_BUDGET_S, it scores the SEGM_EVAL_TOP best merged
+    detections and says so."""
+    import numpy as np
+
+    from mrcnn3d_torch.eval.coco_eval3d import CocoEval3D
+    from mrcnn3d_torch.eval.masks import paste_mask_3d
+    from mrcnn3d_torch.ops.box3d import xyxyzz_to_xywhzd
+
+    per_class, segms = result
+    entries = [
+        dict(image_id=0, category_id=c + 1,
+             bbox=[float(v) for v in xyxyzz_to_xywhzd(det[:6])],
+             score=float(det[6]), segmentation=seg)
+        for c in range(len(per_class))
+        for det, seg in zip(per_class[c], segms[c])
+    ]
+    out = {"detections": len(entries)}
+    t = time.perf_counter()
+    out["bbox"] = CocoEval3D(gt, entries, "bbox").named_stats("bbox")
+    out["bbox_eval_s"] = time.perf_counter() - t
+    probe = entries[:5]
+    t = time.perf_counter()
+    for e in probe:
+        s = e["segmentation"]
+        np.flatnonzero(paste_mask_3d(s["box"], s["mask"], s["shape"]))
+    per_det = (time.perf_counter() - t) / max(len(probe), 1)
+    out["segm_predicted_s"] = per_det * len(entries)
+    segm_entries = entries
+    if out["segm_predicted_s"] > SEGM_EVAL_BUDGET_S:
+        segm_entries = sorted(entries, key=lambda e: -e["score"])[
+            :SEGM_EVAL_TOP]
+        out["segm_note"] = (
+            f"segm scored on the top {SEGM_EVAL_TOP} merged detections: "
+            f"all {len(entries)} would take ~{out['segm_predicted_s']:.0f} s")
+    t = time.perf_counter()
+    out["segm"] = CocoEval3D(gt, segm_entries, "segm").named_stats("segm")
+    out["segm_eval_s"] = time.perf_counter() - t
+    out["segm_detections"] = len(segm_entries)
+    return out
+
+
+def check_wholevol_result(result):
+    """Per-class (n, 7) finite rows inside the volume, one {box, mask,
+    shape} carrier per row whose mask has the box's extents."""
+    import numpy as np
+
+    from mrcnn3d_torch.eval.masks import box_extent
+
+    per_class, segms = result
+    d, h, w = WHOLEVOL_SHAPE
+    n = 0
+    for rows, segs in zip(per_class, segms):
+        if rows.ndim != 2 or rows.shape[1] != 7 or len(segs) != len(rows):
+            raise AssertionError(f"wholevol: rows {rows.shape}, "
+                                 f"{len(segs)} masks")
+        if not np.isfinite(rows).all():
+            raise AssertionError("wholevol: non-finite detections")
+        lo, hi = rows[:, [0, 1, 4]], rows[:, [2, 3, 5]]
+        if (lo < -1e-3).any() or (hi > np.array([w, h, d]) - 1 + 1e-3).any():
+            raise AssertionError("wholevol: a box leaves the volume")
+        for seg in segs:
+            if tuple(seg["shape"]) != WHOLEVOL_SHAPE or \
+                    seg["mask"].shape != box_extent(seg["box"]):
+                raise AssertionError("wholevol: a mask's frame or extent")
+        n += len(rows)
+    if n == 0:
+        raise AssertionError("wholevol: no detections")
+    return n
+
+
+def run_wholevol(device, calls=3):
+    """The whole volume at full width: 1 first call and `calls` timed
+    ones with the launch counters zeroed just before and read just after;
+    then one profiled sweep, one sweep whose first tile's K1 and K2
+    launches are recorded, and the 3-D COCO scores."""
+    import numpy as np
+    import torch
+
+    from mrcnn3d_torch.entry import build
+    from mrcnn3d_torch.ops import nms3d, roi_align3d
+
+    torch.backends.cudnn.benchmark = True
+    det = build(main_config(), device=device, dtype=torch.bfloat16,
+                budgets=MAIN_BUDGET, seed=0)
+    t = time.perf_counter()
+    sample = {"imgs": np.random.RandomState(13).standard_normal(
+        (*WHOLEVOL_SHAPE, 3)).astype(np.float32)}
+    make_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    nms3d.launches = 0
+    roi_align3d.launches = 0
+    walls, timers, result = [], [], None
+    for i in range(1 + calls):
+        tm = {}
+        t = time.perf_counter()
+        result = det.tiled(sample, timers=tm, **WHOLEVOL)
+        wall = time.perf_counter() - t
+        if i == 0:
+            first = dict(seconds=wall, timers=tm)
+        else:
+            walls.append(wall)
+            timers.append(tm)
+    launches = {"nms3d": nms3d.launches, "roi_align3d": roi_align3d.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_calls = 1 + calls
+    if first["timers"]["n_tiles"] != WHOLEVOL_TILES:
+        raise AssertionError(f"wholevol: {first['timers']['n_tiles']} tiles")
+    per_volume = {k: WHOLEVOL_TILES * v for k, v in
+                  {"nms3d": 3, "roi_align3d": 4}.items()}
+    for name, count in per_volume.items():
+        if launches[name] != count * n_calls:
+            raise AssertionError(
+                f"wholevol: {name} {launches[name]} launches in {n_calls} "
+                f"volumes, expected {count} per volume")
+    n_det = check_wholevol_result(result)
+    med = {k: float(np.median([tm[k] for tm in timers])) for k in timers[0]}
+    profile = profile_step(lambda: det.tiled(sample, **WHOLEVOL))
+    # the first tile's launches: a tile is one simple_test, so its K1 and
+    # K2 launches are the first of the sweep's
+    with Capture() as captured:
+        det.tiled(sample, **WHOLEVOL)
+    torch.cuda.synchronize()
+    captured.calls = {k: v[:len(STEP_CALLS[k])]
+                      for k, v in captured.calls.items()}
+    scores = score_wholevol(result, wholevol_gt())
+    return dict(
+        shape=list(WHOLEVOL_SHAPE), **WHOLEVOL, volume_make_s=make_s,
+        first_call=first, calls=calls, e2e_s=walls,
+        median_e2e_s=float(np.median(walls)),
+        spread_e2e_s=float(max(walls) - min(walls)), median_timers=med,
+        detections=n_det, max_memory_allocated_gib=peak,
+        launches=launches, launches_per_volume=per_volume,
+        profile=profile, scores=scores,
+    ), captured
+
+
 def _per_call(calls):
     return [{k: c[k] for k in ("name", "valid", "ms", "device_ms",
                                "device_ms_by_kernel", "plain_ms",
@@ -1344,17 +1699,20 @@ def _step_sums(calls):
 
 
 def kernels_line(nms_calls, align_calls, step_calls, main_path,
-                 train_calls, train_path):
+                 train_calls, train_path, tile_calls, wholevol):
     """The {"kernels": [...]} record.  Per kernel: launches from the
     counted run of its path (K1 and K2: the inference main path, with the
-    train path's beside them as train_*; K2's backward: the train path);
-    ms (CUDA events), device_ms (profiler), plain_ms and the bound summed
-    over one step's launches, each run alone on the arguments the path
-    gave it; the profiled device time of the same kernel within one step;
-    the largest error of every comparison (phase 3 and the steps'
+    train path's beside them as train_* and the whole volume's as
+    wholevol_*; K2's backward: the train path); ms (CUDA events),
+    device_ms (profiler), plain_ms and the bound summed over one step's
+    launches, each run alone on the arguments the path gave it (for the
+    whole volume, one tile's: wholevol_tile_*); the profiled device time
+    of the same kernel within one step (one whole volume); the largest
+    error of every comparison (phase 3 and the steps' and tile's
     calls)."""
     profile = main_path["profile"] or {}
     train_profile = train_path["profile"] or {}
+    wholevol_profile = wholevol["profile"] or {}
     kernels = []
     for name, src, replaces, checked in (
         ("nms3d", "mrcnn3d_torch/csrc/nms3d.cu",
@@ -1366,13 +1724,15 @@ def kernels_line(nms_calls, align_calls, step_calls, main_path,
         checked = checked + ([step_calls["roi_align3d_direct"]]
                              if name == "roi_align3d" else [])
         train = _step_sums(train_calls[name])
+        tile = _step_sums(tile_calls[name])
         kernels.append({
             "name": name, "route": "cuda", "source": src,
             "replaces": replaces,
             "launches": main_path["launches"][name],
             "launches_per_step": main_path["launches_per_step"][name],
             "max_abs_err": max(c["max_abs_err"]
-                               for c in checked + calls + train_calls[name]),
+                               for c in checked + calls + train_calls[name]
+                               + tile_calls[name]),
             **_step_sums(calls), "library_ms": None,
             "profiled_ms_per_step":
                 profile.get("port_kernels_ms", {}).get(name),
@@ -1384,6 +1744,12 @@ def kernels_line(nms_calls, align_calls, step_calls, main_path,
             "train_profiled_ms_per_step":
                 train_profile.get("port_kernels_ms", {}).get(name),
             "train_per_step_calls": _per_call(train_calls[name]),
+            "wholevol_launches": wholevol["launches"][name],
+            "wholevol_launches_per_volume":
+                wholevol["launches_per_volume"][name],
+            "wholevol_profiled_ms_per_volume":
+                wholevol_profile.get("port_kernels_ms", {}).get(name),
+            **{f"wholevol_tile_{k}": v for k, v in tile.items()},
         })
     calls = train_calls["roi_align3d_backward"]
     kernels.append({
@@ -1476,8 +1842,24 @@ def main():
     emit({"phase": "train_step_kernels", "ok": True, **train_calls,
           "seconds": time.perf_counter() - t})
 
+    t = time.perf_counter()
+    small_tiled = check_small_tiled(device)
+    emit({"phase": "small_tiled", "ok": True, **small_tiled,
+          "seconds": time.perf_counter() - t})
+
+    t = time.perf_counter()
+    wholevol, captured = run_wholevol(device)
+    emit({"phase": "wholevol", "ok": True, **wholevol,
+          "seconds": time.perf_counter() - t})
+
+    t = time.perf_counter()
+    tile_calls = check_step_kernels(captured)
+    del captured
+    emit({"phase": "wholevol_tile_kernels", "ok": True, **tile_calls,
+          "seconds": time.perf_counter() - t})
+
     emit(kernels_line(nms_calls, align_calls, step_calls, main_path,
-                      train_calls, train_path))
+                      train_calls, train_path, tile_calls, wholevol))
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -13,6 +13,15 @@ config's `test_cfg.return_bbox_only` decides whether masks are computed
 falling back to the CPU.  Weights are random, drawn from `seed`;
 `load_state_dict` on `det.model` replaces them.
 
+A whole volume, tiled (`apis/tiled.py`), from a normalised (D, H, W, 3)
+numpy volume (its 1.5x twin is derived on the card unless given as
+`imgs_2`):
+
+    per_class, segms = det.tiled(dict(imgs=volume), patch_hw=512,
+                                 patch_d=64)
+
+and scored with `eval.coco_eval3d.CocoEval3D`.
+
 Training, on the same terms:
 
     from mrcnn3d_torch.entry import build_trainer
@@ -32,6 +41,7 @@ import os
 
 import torch
 
+from .apis.tiled import tiled_inference
 from .core.targets import TorchDraws
 from .detectors.build import anchor_cfgs, build_detector
 from .detectors.pipeline import anchor_sets_for, simple_test
@@ -69,6 +79,11 @@ class Flagship:
         )
         with torch.inference_mode():
             return simple_test(self.model, batch, self.cfg, sets, mark=mark)
+
+    def tiled(self, volume_sample, **kw):
+        """`apis.tiled.tiled_inference` on this detector: per-class
+        detections in volume coordinates (and their masks)."""
+        return tiled_inference(self, volume_sample, **kw)
 
     def run(self, imgs, imgs_2):
         """Returns dets (B, max_per_img, 7), labels (B, max_per_img),

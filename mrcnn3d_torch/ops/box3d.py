@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 DELTA_MEANS = (0.0, 0.0, 0.0, 0.0, 0.0, 0.0)
@@ -146,3 +147,30 @@ def bbox_overlaps_3d(boxes1, boxes2):
     vol1 = box_volume(boxes1)
     vol2 = box_volume(boxes2)
     return inter / (vol1[:, None] + vol2[None, :] - inter)
+
+
+def clip_boxes(boxes, img_shape):
+    """Clip boxes (..., 6) to the volume; img_shape (H, W, C, D), the
+    reference layout."""
+    h, w, d = img_shape[0], img_shape[1], img_shape[3]
+    hi = (w - 1, h - 1, w - 1, h - 1, d - 1, d - 1)
+    return torch.stack(
+        [boxes[..., i].clamp(0, hi[i]) for i in range(6)], dim=-1
+    )
+
+
+def xyxyzz_to_xywhzd(boxes):
+    """The COCO-3D json box [x1, y1, w+1, h+1, z1, d+1] of numpy boxes
+    (reference coco_utils.py:233-242 xyxyzz2xywhzd)."""
+    boxes = np.asarray(boxes)
+    return np.stack(
+        [
+            boxes[..., 0],
+            boxes[..., 1],
+            boxes[..., 2] - boxes[..., 0] + 1,
+            boxes[..., 3] - boxes[..., 1] + 1,
+            boxes[..., 4],
+            boxes[..., 5] - boxes[..., 4] + 1,
+        ],
+        axis=-1,
+    )

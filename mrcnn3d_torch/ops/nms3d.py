@@ -18,6 +18,7 @@ import ctypes
 import functools
 import itertools
 
+import numpy as np
 import torch
 
 from . import _cuda
@@ -177,3 +178,39 @@ def top_kept(boxes, scores, keep, max_out):
     )
     out_boxes = torch.where(out_valid[..., None], out_boxes, 0.0)
     return out_boxes, top_s, out_valid
+
+
+def nms_3d_overlap_numpy(dets, iou_thr):
+    """The plain version of the eval-merge NMS (`native.nms3d_overlap`):
+    asymmetric overlap = inter / vol(other), +1 extents.
+
+    dets: (N, 7) numpy [x1, y1, x2, y2, z1, z2, score].  Returns the kept
+    indices, highest score first, in the reference `nms_3d_python` pick
+    order.
+    """
+    dets = np.asarray(dets)
+    if dets.shape[0] == 0:
+        return []
+    x1, y1, x2, y2, z1, z2, probs = (dets[:, i] for i in range(7))
+    idxs = np.argsort(probs)
+    areas = (x2 - x1 + 1) * (y2 - y1 + 1) * (z2 - z1 + 1)
+    pick = []
+    while len(idxs) > 0:
+        last = len(idxs) - 1
+        i = idxs[last]
+        pick.append(int(i))
+        rest = idxs[:last]
+        xx1 = np.maximum(x1[i], x1[rest])
+        yy1 = np.maximum(y1[i], y1[rest])
+        zz1 = np.maximum(z1[i], z1[rest])
+        xx2 = np.minimum(x2[i], x2[rest])
+        yy2 = np.minimum(y2[i], y2[rest])
+        zz2 = np.minimum(z2[i], z2[rest])
+        w = np.maximum(0, xx2 - xx1 + 1)
+        h = np.maximum(0, yy2 - yy1 + 1)
+        d = np.maximum(0, zz2 - zz1 + 1)
+        overlap = (w * h * d) / areas[rest]
+        idxs = np.delete(
+            idxs, np.concatenate(([last], np.where(overlap > iou_thr)[0]))
+        )
+    return pick

@@ -282,7 +282,10 @@ def _taps_fn():
 def _path_counter(dev):
     counter = path_rois.get(dev)
     if counter is None:
-        counter = torch.zeros(2, dtype=torch.int64, device=dev)
+        # a normal tensor even when the first launch runs under
+        # inference_mode (simple_test): reset_path_counts zeroes it later
+        with torch.inference_mode(False):
+            counter = torch.zeros(2, dtype=torch.int64, device=dev)
         path_rois[dev] = counter
     return counter
 

@@ -12,7 +12,10 @@ and weights) exactly equal; the small pipeline and the mask stage 2e-3
 against the CPU.  K2's backward: float32 gradients within 1e-4 of the
 largest (float atomics add in an order that varies), bfloat16 levels'
 gradients within one bf16 rounding; the small train step as
-`chip_smoke.check_small_train` states.
+`chip_smoke.check_small_train` states.  The whole-volume path: the 1.5x
+twin derived on the card within 1e-5 of the CPU's in float32 (one bf16
+rounding apart in bfloat16), and the small tiled sweep as
+`chip_smoke.check_small_tiled` states.
 """
 import pytest
 import torch
@@ -404,3 +407,52 @@ def test_small_train_card_vs_cpu(cuda):
 
     result = chip_smoke.check_small_train(cuda)
     assert result["draws"] == 20 and max(result["positives"]) > 0
+
+
+# ---------------------------------------------------------------------------
+# whole-volume inference
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape,out", [((16, 64, 64), (24, 96, 96)),
+                                       ((9, 30, 41), (13, 45, 61)),
+                                       ((20, 40, 40), (7, 33, 50))])
+def test_twin_card_vs_cpu(cuda, shape, out):
+    from mrcnn3d_torch.ops.resize3d import resize_trilinear_3d
+
+    gen = torch.Generator().manual_seed(12)
+    vol = torch.randn((1, 3, *shape), generator=gen)
+    got = resize_trilinear_3d(vol.to(cuda), out).cpu()
+    want = resize_trilinear_3d(vol, out)
+    assert float((got - want).abs().max()) <= 1e-5
+    vb = vol.to(torch.bfloat16)
+    got = resize_trilinear_3d(vb.to(cuda), out).cpu()
+    want = resize_trilinear_3d(vb, out)
+    assert got.dtype == torch.bfloat16
+    assert _align_matches(got, want, 0.0)
+
+
+def test_small_tiled_card_vs_cpu(cuda):
+    import chip_smoke
+
+    before = (nms3d.launches, ra.launches)
+    result = chip_smoke.check_small_tiled(cuda)
+    assert result["detections"] > 4
+    # 27 tiles on the card, each 3 K1 and 4 K2 launches
+    assert (nms3d.launches - before[0], ra.launches - before[1]) == (81, 108)
+
+
+def test_path_counts_reset_after_a_launch_in_inference_mode(cuda):
+    """K2's path counter made by a first launch under inference_mode (as
+    `Flagship.run` and `tiled` launch it) can be reset afterwards."""
+    feats = [torch.zeros((1, 2, 8, 8, 32), device=cuda)]
+    rois = torch.tensor([[0.0, 1.0, 1.0, 6.0, 6.0, 0.0, 1.0]], device=cuda)
+    one = torch.ones(1, dtype=torch.bool, device=cuda)
+    ra.path_rois.clear()
+    with torch.inference_mode():
+        ra.roi_align_3d_cuda(feats, rois, torch.zeros(1, dtype=torch.int32,
+                                                      device=cuda), one, 7,
+                             3, [4], [2], 2)
+    assert ra.path_counts() == {"window": 1, "direct": 0}
+    ra.reset_path_counts()
+    assert ra.path_counts() == {"window": 0, "direct": 0}
