@@ -71,6 +71,31 @@ Phases, each printing one JSON line with its seconds:
  12. wholevol_tile_kernels -- the K1 and K2 launches of one tile of that
                  sweep, recorded with their arguments, against the plain
                  versions and timed alone, as in phase 6.
+ 13. learn    -- the pinned learning protocol (tools/learning_bench.py)
+                 cut to 200 iterations: the port generates the pinned data
+                 (its hash must be LEARNING.json's); the loader's first
+                 batch on the card must equal its numpy sample bit for
+                 bit; train_detector at full width from seed 2024 through
+                 the Prefetcher with the config's workers, float32, the
+                 counters zeroed just before and read just after (K1 2, K2
+                 5, K2's backward 5 launches an iteration); the mean loss
+                 of the last 20 iterations must be below the first 20's;
+                 the last iteration's launches, recorded, each against its
+                 plain version (as in phase 9); the trained detector's
+                 gradients on the first batch through the kernels against
+                 through the plain versions on the card, from the same
+                 draws (samples equal, losses and each parameter's
+                 gradient within 2e-3 of its largest); then the
+                 double_test + segm evaluation of the checkpoint (counted
+                 the same way): 29 finite stats each, and the launches of
+                 its last volume pair (pass 2, a 576x576x108 twin) each
+                 against its plain version.
+ 14. serve    -- apis.serve.watch with that checkpoint over an in-dir of
+                 the 4 val volumes (counted): one json per volume, its rows
+                 as run_inference's for that volume (same counts, 2e-3).
+                 Both run the same detector, so this checks the loop's
+                 file IO and host-side twin; the last served volume's
+                 launches are each checked against the plain version.
 Then the kernels line, the card line and, last, the result line
 {"ok": true, "device": {...}}.  Any failure raises: the exit code is then
 not 0 and no result line is printed.
@@ -790,12 +815,17 @@ def run_main_path(device, steps=3):
 class Capture:
     """Within the block, records the arguments of every launch of the
     named kernels (calling them as usual), by wrapping their wrappers:
-    K1 and K2 by default, K2's backward too when it is named."""
+    K1 and K2 by default, K2's backward too when it is named.  keep:
+    {kernel: n} keeps only each kernel's last n launches (those of the
+    path's last step or volume)."""
 
-    def __init__(self, kernels=("nms3d", "roi_align3d")):
+    def __init__(self, kernels=("nms3d", "roi_align3d"), keep=None):
         self.kernels = kernels
+        self.keep = keep
 
     def __enter__(self):
+        import collections
+
         from mrcnn3d_torch.ops import nms3d, roi_align3d
 
         wrappers = {
@@ -804,7 +834,8 @@ class Capture:
             "roi_align3d_backward": (roi_align3d,
                                      "roi_align_3d_backward_cuda"),
         }
-        self.calls = {k: [] for k in self.kernels}
+        self.calls = {k: collections.deque(maxlen=(self.keep or {}).get(k))
+                      for k in self.kernels}
         self._saved = [(*wrappers[k], getattr(*wrappers[k]))
                        for k in self.kernels]
         for (mod, attr, fn), calls in zip(self._saved, self.calls.values()):
@@ -822,6 +853,7 @@ class Capture:
     def __exit__(self, *exc):
         for mod, attr, fn in self._saved:
             setattr(mod, attr, fn)
+        self.calls = {k: list(v) for k, v in self.calls.items()}
         return False
 
 
@@ -831,16 +863,44 @@ STEP_CALLS = {
     "roi_align3d": ["bbox_1.0x", "bbox_1.5x", "refinement_1.0x",
                     "mask_1.0x"],
 }
+# those of a boxes-only simple_test (an evaluation pass-2 volume, a
+# served volume under the flagship's test_cfg)
+BOX_STEP_CALLS = {"nms3d": STEP_CALLS["nms3d"],
+                  "roi_align3d": STEP_CALLS["roi_align3d"][:3]}
+
+
+def volume_calls(test_cfg):
+    """The names of one simple_test's launches under `test_cfg`."""
+    return BOX_STEP_CALLS if test_cfg.get("return_bbox_only") else STEP_CALLS
+
+
+def keep_last(names):
+    """Capture's `keep` for the launches of the last of these calls."""
+    return {k: len(v) for k, v in names.items()}
+
+
+def check_launches(captured, names, what):
+    """Each recorded K1 and K2 launch, on the arguments the path gave
+    it, against the plain version and timed alone; `names` names them
+    in launch order."""
+    got = {k: len(v) for k, v in captured.calls.items()}
+    want = {k: len(v) for k, v in names.items()}
+    if got != want:
+        raise AssertionError(f"launches in the captured {what}: {got}, "
+                             f"expected {want}")
+    return {
+        "nms3d": [nms_case(name, *args) for name, args in
+                  zip(names["nms3d"], captured.calls["nms3d"])],
+        "roi_align3d": [align_case(name, args) for name, args in
+                        zip(names["roi_align3d"],
+                            captured.calls["roi_align3d"])],
+    }
 
 
 def check_step_kernels(captured):
     """Each launch of one main-path step, on the arguments it was given
     there, against the plain version, and timed alone."""
-    got = {k: len(v) for k, v in captured.calls.items()}
-    want = {k: len(v) for k, v in STEP_CALLS.items()}
-    if got != want:
-        raise AssertionError(f"launches in the captured step: {got}, "
-                             f"expected {want}")
+    out = check_launches(captured, STEP_CALLS, "step")
     import torch
 
     from mrcnn3d_torch.ops import roi_align3d as ra
@@ -854,14 +914,7 @@ def check_step_kernels(captured):
                    torch.ones(MAIN_BUDGET, dtype=torch.bool,
                               device=rois.device),
                    *captured.calls["roi_align3d"][-1][4:])
-    out = {
-        "nms3d": [nms_case(name, *args) for name, args in
-                  zip(STEP_CALLS["nms3d"], captured.calls["nms3d"])],
-        "roi_align3d": [align_case(name, args) for name, args in
-                        zip(STEP_CALLS["roi_align3d"],
-                            captured.calls["roi_align3d"])],
-        "roi_align3d_direct": align_case("mask_1.0x_direct", direct_args),
-    }
+    out["roi_align3d_direct"] = align_case("mask_1.0x_direct", direct_args)
     if out["roi_align3d_direct"]["paths"]["direct"] == 0:
         raise AssertionError("K2: the direct-read case took no direct path")
     return out
@@ -1047,6 +1100,35 @@ SAMPLE_FLOATS = ("bbox_targets", "rois")
 UPDATE_TOL = {"backbone.conv1.weight": 2e-2}
 
 
+def compare_samples(got, want, what):
+    """Two runs of forward_train, each (losses, _, recorded samples, the
+    draws' counts): every draw's count, anchor target and R-CNN sample
+    equal (float boxes and deltas within PIPELINE_ATOL), the losses
+    within PIPELINE_ATOL.  Returns the largest float sample and loss
+    errors."""
+    if got[3] != want[3]:
+        raise AssertionError(f"{what}: the draws' counts differ")
+    made_err = 0.0
+    for kind, items in want[2].items():
+        if len(items) != len(got[2][kind]):
+            raise AssertionError(f"{what}: {kind} calls differ")
+        for w_item, g_item in zip(items, got[2][kind]):
+            for key, w in w_item.items():
+                g = g_item[key]
+                if key in SAMPLE_FLOATS:
+                    e = float((g - w).abs().max()) if w.numel() else 0.0
+                    if not e <= PIPELINE_ATOL:
+                        raise AssertionError(
+                            f"{what}: {kind} {key} differ by {e}")
+                    made_err = max(made_err, e)
+                elif not bool((g == w).all()):
+                    raise AssertionError(f"{what}: {kind} {key} differ")
+    loss_err = max(abs(got[0][k] - v) for k, v in want[0].items())
+    if set(got[0]) != set(want[0]) or not loss_err <= PIPELINE_ATOL:
+        raise AssertionError(f"{what}: losses differ by {loss_err}")
+    return made_err, loss_err
+
+
 def check_small_train(device):
     """The narrow train step on the card against the CPU: every draw's
     count, anchor target and R-CNN sample equal (float boxes and deltas
@@ -1060,26 +1142,7 @@ def check_small_train(device):
 
     gpu = small_train_step(device)
     cpu = small_train_step("cpu")
-    if gpu[3] != cpu[3]:
-        raise AssertionError("small train: the draws' counts differ")
-    made_err = 0.0
-    for kind, items in cpu[2].items():
-        if len(items) != len(gpu[2][kind]):
-            raise AssertionError(f"small train: {kind} calls differ")
-        for want, got in zip(items, gpu[2][kind]):
-            for key, w in want.items():
-                g = got[key]
-                if key in SAMPLE_FLOATS:
-                    e = float((g - w).abs().max()) if w.numel() else 0.0
-                    if not e <= PIPELINE_ATOL:
-                        raise AssertionError(
-                            f"small train: {kind} {key} differ by {e}")
-                    made_err = max(made_err, e)
-                elif not bool((g == w).all()):
-                    raise AssertionError(f"small train: {kind} {key} differ")
-    loss_err = max(abs(gpu[0][k] - v) for k, v in cpu[0].items())
-    if set(gpu[0]) != set(cpu[0]) or not loss_err <= PIPELINE_ATOL:
-        raise AssertionError(f"small train: losses differ by {loss_err}")
+    made_err, loss_err = compare_samples(gpu, cpu, "small train")
     update_err = {}
     for name, (want, p_cpu) in cpu[1].items():
         got, p_gpu = gpu[1][name]
@@ -1680,6 +1743,359 @@ def run_wholevol(device, calls=3):
     ), captured
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the pinned learning protocol, cut to 200 iterations
+# ---------------------------------------------------------------------------
+
+
+LEARN_ITERS = 200
+LEARN_SEED = 2024
+# the losses' means over the first and the last LEARN_WINDOW iterations
+LEARN_WINDOW = 20
+
+
+def kernel_counts():
+    from mrcnn3d_torch.ops import nms3d, roi_align3d
+
+    return {"nms3d": nms3d.launches, "roi_align3d": roi_align3d.launches,
+            "roi_align3d_backward": roi_align3d.backward_launches}
+
+
+def zero_counts():
+    from mrcnn3d_torch.ops import nms3d, roi_align3d
+
+    nms3d.launches = 0
+    roi_align3d.launches = 0
+    roi_align3d.backward_launches = 0
+
+
+def check_first_batch(cfg, data, device):
+    """The loader's first batch on the card against the numpy sample it
+    was made from (a second dataset from the same seed): every array bit
+    for bit, the volumes NCDHW in channels_last_3d storage.  Returns
+    (what was checked, the batch)."""
+    import numpy as np
+    import torch
+
+    from mrcnn3d_torch.data.loader import Prefetcher, epoch_indices
+    from mrcnn3d_torch.tools.learning_bench import train_dataset
+
+    ann_tr, dir_tr = data[1:3]
+    loaded = train_dataset(cfg, ann_tr, dir_tr, LEARN_SEED)
+    plain = train_dataset(cfg, ann_tr, dir_tr, LEARN_SEED)
+    loader = Prefetcher(loaded, 1, seed=LEARN_SEED, num_workers=1,
+                        device=device)
+    try:
+        batch = next(iter(loader))
+    finally:
+        loader.close()
+    sample = plain[int(epoch_indices(len(plain), 0, True, 0, 1,
+                                     LEARN_SEED)[0])]
+    if set(batch) != set(sample):
+        raise AssertionError(f"learn: batch keys {sorted(batch)}")
+    for k, v in sample.items():
+        t = batch[k]
+        if t.device != torch.device(device):
+            raise AssertionError(f"learn: {k} on {t.device}")
+        if k.startswith("imgs"):
+            if not t.is_contiguous(memory_format=torch.channels_last_3d):
+                raise AssertionError(f"learn: {k} not channels_last_3d")
+            t = t.permute(0, 2, 3, 4, 1)
+        got = t.cpu().numpy()[0]
+        if got.dtype != v.dtype or not np.array_equal(got, v):
+            raise AssertionError(f"learn: the first batch's {k} differs "
+                                 "from its sample")
+    return dict(keys=sorted(sample), bytes=sum(v.nbytes for v in
+                                               sample.values()),
+                imgs=list(batch["imgs"].shape),
+                imgs_2=list(batch["imgs_2"].shape)), batch
+
+
+class PlainKernels:
+    """Within the block, the kernels' wrappers run their plain PyTorch
+    versions (on the card's tensors, uncounted)."""
+
+    SWAPS = (("nms3d", "greedy_scan_cuda", "greedy_scan_plain"),
+             ("roi_align3d", "roi_align_3d_cuda", "roi_align_3d_plain"),
+             ("roi_align3d", "roi_align_3d_backward_cuda",
+              "roi_align_3d_backward_plain"))
+
+    def __enter__(self):
+        from mrcnn3d_torch.ops import nms3d, roi_align3d
+
+        mods = {"nms3d": nms3d, "roi_align3d": roi_align3d}
+        self._saved = []
+        for name, attr, plain in self.SWAPS:
+            mod = mods[name]
+            self._saved.append((mod, attr, getattr(mod, attr)))
+            setattr(mod, attr, getattr(mod, plain))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self._saved:
+            setattr(mod, attr, fn)
+        return False
+
+
+def learn_gradients(state, batch, plain):
+    """forward_train and its backward with the weights `state` holds, on
+    `batch`, the samplers drawing from CountedDraws(LEARN_SEED); with
+    `plain`, the plain versions in place of the kernels.  Returns
+    (losses, {parameter: gradient}, the recorded samples, the draws'
+    counts), all on the CPU; the parameters' gradients are cleared."""
+    import contextlib
+
+    from mrcnn3d_torch.detectors.pipeline import forward_train
+
+    model = state.model
+    sets = state.anchor_sets([batch["imgs"].shape[2:],
+                              batch["imgs_2"].shape[2:]])
+    model.zero_grad(set_to_none=True)
+    draws = CountedDraws(LEARN_SEED)
+    swap = PlainKernels() if plain else contextlib.nullcontext()
+    with SampleRecorder() as rec, swap:
+        total, losses = forward_train(model, batch, state.cfg, sets, draws)
+        total.backward()
+    grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()
+             if p.grad is not None}
+    model.zero_grad(set_to_none=True)
+    return ({k: float(v.detach()) for k, v in losses.items()}, grads,
+            rec.made, draws.highs)
+
+
+def check_learn_gradients(state, batch):
+    """The trained detector's gradients on one batch of the learning
+    run, through the kernels against through their plain versions, on
+    the card, from the same draws: every draw's count and sample equal,
+    the losses within PIPELINE_ATOL, each parameter's gradient within
+    PIPELINE_ATOL of the plain gradient's largest magnitude.  Reports the
+    largest relative error of each module."""
+    kern = learn_gradients(state, batch, plain=False)
+    plain = learn_gradients(state, batch, plain=True)
+    made_err, loss_err = compare_samples(kern, plain, "learn gradients")
+    if set(kern[1]) != set(plain[1]):
+        raise AssertionError("learn gradients: different parameters")
+    rel = {}
+    for name, want in plain[1].items():
+        scale = float(want.abs().max())
+        e = float((kern[1][name] - want).abs().max())
+        if not e <= PIPELINE_ATOL * scale:
+            raise AssertionError(f"learn gradients: {name} differs by {e}, "
+                                 f"largest {scale}")
+        rel[name] = e / scale if scale else 0.0
+    by_module = {}
+    for name, r in rel.items():
+        mod = name.split(".")[0]
+        by_module[mod] = max(by_module.get(mod, 0.0), r)
+    return dict(losses=kern[0], max_loss_err=loss_err,
+                positives=[h for site, _, h in plain[3] if site[-1] == "pos"],
+                max_sample_float_err=made_err,
+                worst_grad_rel_err_by_module=by_module, tol=PIPELINE_ATOL)
+
+
+def run_learn(device, workdir, cfg=None, geometry=None, iters=LEARN_ITERS):
+    """The pinned learning protocol through the port's entry points, cut
+    to `iters` iterations: the pinned data (its hash must be
+    LEARNING.json's), the loader's first batch on the card, train_detector
+    at full width from seed LEARN_SEED through the Prefetcher with the
+    config's workers (float32, TF32 off; the counters zeroed just before
+    and read just after: K1 2, K2 5 and K2's backward 5 launches an
+    iteration), then tools/learning_bench.py's double_test + segm
+    evaluation of the checkpoint it leaves (counted the same way).  The
+    launches of the last iteration and of the evaluation's last volume (a
+    pass-2 volume pair, 576x576x108 twin) are recorded and each checked
+    against its plain version, and the trained detector's gradients on
+    the first batch through the kernels against through the plain
+    versions.  Returns (the phase's record, the data, the checked
+    launches).  cfg / geometry replace the flagship and the pinned data
+    (the CPU rehearsal)."""
+    import numpy as np
+    import torch
+
+    from mrcnn3d_torch.apis.test_api import load_detector
+    from mrcnn3d_torch.apis.train_api import train_detector
+    from mrcnn3d_torch.tools import learning_bench as lb
+    from mrcnn3d_torch.utils.config import Config
+
+    cfg = cfg or Config.fromfile(CONFIG)
+    out = {}
+    t = time.perf_counter()
+    data = lb.generate_pinned_data(workdir, cfg.get("upscale_factor", 1.5),
+                                   geometry)
+    out["data_s"] = time.perf_counter() - t
+    with open(os.path.join(REPO, "LEARNING.json")) as f:
+        pinned = json.load(f)["data_sha256"]
+    out["data_sha256"] = data[0]
+    if geometry is None and data[0] != pinned:
+        raise AssertionError(f"learn: data hash {data[0]} is not the "
+                             f"pinned {pinned}")
+    t = time.perf_counter()
+    out["first_batch"], batch = check_first_batch(cfg, data, device)
+    out["first_batch_s"] = time.perf_counter() - t
+
+    dataset = lb.train_dataset(cfg, data[1], data[2], LEARN_SEED)
+    stats = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    with Capture(tuple(TRAIN_PER_STEP), keep=keep_last(
+            {**TRAIN_STEP_CALLS, "roi_align3d_backward":
+             TRAIN_STEP_CALLS["roi_align3d"]})) as captured:
+        state = train_detector(cfg, dataset, work_dir=workdir,
+                               seed=LEARN_SEED, max_iters=iters,
+                               log_interval=100, device=device, stats=stats)
+    launches = kernel_counts()
+    for name, count in TRAIN_PER_STEP.items():
+        if launches[name] != count * iters:
+            raise AssertionError(
+                f"learn: {name} {launches[name]} launches in {iters} "
+                f"iterations, expected {count} per iteration")
+    losses = np.asarray(stats["losses"])
+    first = float(losses[:LEARN_WINDOW].mean())
+    last = float(losses[-LEARN_WINDOW:].mean())
+    if stats["iters"] != iters or not np.isfinite(losses).all() \
+            or not last < first:
+        raise AssertionError(f"learn: {stats['iters']} iterations, loss "
+                             f"mean {first} over the first and {last} over "
+                             f"the last {LEARN_WINDOW}")
+    out.update(
+        iters=iters, train_s=stats["seconds"],
+        iters_per_s=iters / stats["seconds"],
+        loader_wait_s=stats["loader_wait_s"],
+        loader_wait_share=stats["loader_wait_s"] / stats["seconds"],
+        first_step_s=stats["first_step_s"],
+        loss_mean_first=first, loss_mean_last=last, window=LEARN_WINDOW,
+        workers=cfg.data.get("workers_per_gpu", 4),
+        launches=launches, launches_per_iteration=TRAIN_PER_STEP,
+        train_max_memory_allocated_gib=torch.cuda.max_memory_allocated()
+        / 2**30,
+    )
+    t = time.perf_counter()
+    calls = {"train": check_train_step_kernels(captured)}
+    del captured
+    out["gradients"] = check_learn_gradients(state, batch)
+    out["checks_s"] = time.perf_counter() - t
+    del state, batch
+
+    model, step = load_detector(cfg, workdir, device)
+    if step != iters:
+        raise AssertionError(f"learn: checkpoint at step {step}")
+    timers = {}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t = time.perf_counter()
+    pass2 = volume_calls(cfg.get("test_cfg2", cfg.test_cfg))
+    with Capture(keep=keep_last(pass2)) as captured:
+        stats, single, segm, quality = lb.evaluate_protocol(
+            cfg, model, data[3], data[4], data[5], data[6], timers)
+    out["eval_s"] = time.perf_counter() - t
+    eval_launches = kernel_counts()
+    for name in ("nms3d", "roi_align3d"):
+        if not eval_launches[name]:
+            raise AssertionError(f"learn: no {name} launch in the eval")
+    for what, s in (("bbox", stats), ("single", single), ("segm", segm)):
+        v = np.array(list(s.values()))
+        if len(v) != 29 or not (np.isfinite(v).all() and (v <= 1).all()
+                                and (v >= -1).all()):
+            raise AssertionError(f"learn: {what} stats {s}")
+    out.update(
+        eval_launches=eval_launches, eval_timers=timers,
+        eval_max_memory_allocated_gib=torch.cuda.max_memory_allocated()
+        / 2**30,
+        bbox={k: stats[k] for k in ("bbox_mAP", "bbox_mAP_0.5",
+                                    "bbox_AR_100")},
+        bbox_single_pass={k: single[k] for k in ("bbox_mAP", "bbox_mAP_0.5",
+                                                 "bbox_AR_100")},
+        segm={k: segm[k] for k in ("segm_mAP", "segm_mAP_0.5")},
+        mask_quality=quality,
+    )
+    calls["eval"] = check_launches(captured, pass2, "evaluation volume")
+    return out, data, calls
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the serving loop over the val volumes
+# ---------------------------------------------------------------------------
+
+
+SERVE_VOLUMES = 4
+
+
+def run_serve(device, workdir, data, cfg=None):
+    """apis.serve.watch with the checkpoint `learn` left over an in-dir
+    holding the val volumes (stop_after=SERVE_VOLUMES), the counters
+    zeroed just before and read just after; each volume's json against
+    run_inference's rows for it (same counts, PIPELINE_ATOL).  Both run
+    the same detector (`InferenceRunner.simple_test`), so this holds the
+    serving loop's file IO and its host-side twin against the dataset's,
+    not the detector against a reference (the JAX comparison is the CPU
+    test's); the detector's launches on this path, those of the last
+    served volume, are recorded and each checked against its plain
+    version.  Returns (the phase's record, the checked launches)."""
+    import shutil
+
+    import numpy as np
+
+    from mrcnn3d_torch.apis.serve import watch
+    from mrcnn3d_torch.apis.test_api import (
+        InferenceRunner,
+        load_detector,
+        run_inference,
+    )
+    from mrcnn3d_torch.tools.common import test_dataset
+    from mrcnn3d_torch.utils.config import Config
+
+    cfg = cfg or Config.fromfile(CONFIG)
+    ann_va, dir_va = data[3:5]
+    te = cfg.data["test"]
+    ds = test_dataset(te, ann_va, dir_va)
+    in_dir = os.path.join(workdir, "serve_in")
+    out_dir = os.path.join(workdir, "serve_out")
+    os.makedirs(in_dir)
+    for info in ds.img_infos:
+        shutil.copy(os.path.join(dir_va, info["file_name"]), in_dir)
+    model, step = load_detector(cfg, workdir, device)
+    runner = InferenceRunner(cfg, model)
+    timers = {}
+    zero_counts()
+    t = time.perf_counter()
+    names = volume_calls(cfg.test_cfg)
+    with Capture(keep=keep_last(names)) as captured:
+        watch(runner, in_dir, out_dir, te["img_norm_cfg"],
+              size_divisor=te.get("size_divisor", 32), poll_s=0.05,
+              stop_after=SERVE_VOLUMES, timers=timers)
+    wall = time.perf_counter() - t
+    launches = kernel_counts()
+    for name in ("nms3d", "roi_align3d"):
+        if not launches[name]:
+            raise AssertionError(f"serve: no {name} launch")
+    results, infos = run_inference(cfg, model, ds, progress=False)[:2]
+    if len(infos) != SERVE_VOLUMES or \
+            len(os.listdir(out_dir)) != SERVE_VOLUMES:
+        raise AssertionError(f"serve: {len(os.listdir(out_dir))} jsons")
+    err, n = 0.0, 0
+    for res, info in zip(results, infos):
+        name = os.path.splitext(info["file_name"])[0] + ".json"
+        with open(os.path.join(out_dir, name)) as f:
+            rec = json.load(f)
+        rows = [np.asarray(rec[f"class_{c + 1}"], np.float32).reshape(-1, 7)
+                for c in range(len(res))]
+        e, _, _ = compare_tiled((rows, [[]] * len(rows)),
+                                (res, [[]] * len(res)), {}, PIPELINE_ATOL,
+                                f"serve {name} against run_inference")
+        err = max(err, e)
+        n += sum(len(r) for r in rows)
+    if n == 0:
+        raise AssertionError("serve: no detections, vacuous")
+    calls = check_launches(captured, names, "served volume")
+    return dict(volumes=SERVE_VOLUMES, checkpoint_step=step,
+                watch_s=wall, seconds_per_volume=wall / SERVE_VOLUMES,
+                volume_s=timers["volume_s"], detections=n,
+                max_abs_err=err, tol=PIPELINE_ATOL,
+                launches=launches), calls
+
+
 def _per_call(calls):
     return [{k: c[k] for k in ("name", "valid", "ms", "device_ms",
                                "device_ms_by_kernel", "plain_ms",
@@ -1698,8 +2114,16 @@ def _step_sums(calls):
             "bound_ms": b_ms, "bound_by": b_by}
 
 
+def _path_sums(prefix, calls):
+    """_step_sums and the per-launch records of one path's recorded
+    launches, under keys that start with `prefix`."""
+    return {**{f"{prefix}_{k}": v for k, v in _step_sums(calls).items()},
+            f"{prefix}_calls": _per_call(calls)}
+
+
 def kernels_line(nms_calls, align_calls, step_calls, main_path,
-                 train_calls, train_path, tile_calls, wholevol):
+                 train_calls, train_path, tile_calls, wholevol, learn,
+                 learn_calls, serve, serve_calls):
     """The {"kernels": [...]} record.  Per kernel: launches from the
     counted run of its path (K1 and K2: the inference main path, with the
     train path's beside them as train_* and the whole volume's as
@@ -1708,8 +2132,13 @@ def kernels_line(nms_calls, align_calls, step_calls, main_path,
     launches, each run alone on the arguments the path gave it (for the
     whole volume, one tile's: wholevol_tile_*); the profiled device time
     of the same kernel within one step (one whole volume); the largest
-    error of every comparison (phase 3 and the steps' and tile's
-    calls)."""
+    error of every comparison (phase 3 and the steps', tile's, learning
+    iteration's and volumes' calls).  The learning run's and the serving
+    loop's counted launches stand beside them as learn_launches,
+    learn_eval_launches and serve_launches; the same sums over the
+    launches of the learning run's last iteration (learn_iter_*), of its
+    evaluation's last volume pair (learn_eval_volume_*) and of the last
+    served volume (serve_volume_*)."""
     profile = main_path["profile"] or {}
     train_profile = train_path["profile"] or {}
     wholevol_profile = wholevol["profile"] or {}
@@ -1723,6 +2152,9 @@ def kernels_line(nms_calls, align_calls, step_calls, main_path,
         calls = step_calls[name]
         checked = checked + ([step_calls["roi_align3d_direct"]]
                              if name == "roi_align3d" else [])
+        paths = {"learn_iter": learn_calls["train"][name],
+                 "learn_eval_volume": learn_calls["eval"][name],
+                 "serve_volume": serve_calls[name]}
         train = _step_sums(train_calls[name])
         tile = _step_sums(tile_calls[name])
         kernels.append({
@@ -1732,7 +2164,8 @@ def kernels_line(nms_calls, align_calls, step_calls, main_path,
             "launches_per_step": main_path["launches_per_step"][name],
             "max_abs_err": max(c["max_abs_err"]
                                for c in checked + calls + train_calls[name]
-                               + tile_calls[name]),
+                               + tile_calls[name]
+                               + sum(paths.values(), [])),
             **_step_sums(calls), "library_ms": None,
             "profiled_ms_per_step":
                 profile.get("port_kernels_ms", {}).get(name),
@@ -1750,8 +2183,14 @@ def kernels_line(nms_calls, align_calls, step_calls, main_path,
             "wholevol_profiled_ms_per_volume":
                 wholevol_profile.get("port_kernels_ms", {}).get(name),
             **{f"wholevol_tile_{k}": v for k, v in tile.items()},
+            "learn_launches": learn["launches"][name],
+            "learn_eval_launches": learn["eval_launches"][name],
+            "serve_launches": serve["launches"][name],
+            **{k: v for prefix, c in paths.items()
+               for k, v in _path_sums(prefix, c).items()},
         })
     calls = train_calls["roi_align3d_backward"]
+    learn_back = learn_calls["train"]["roi_align3d_backward"]
     kernels.append({
         "name": "roi_align3d_backward", "route": "cuda",
         "source": "mrcnn3d_torch/csrc/roi_align3d.cu", "replaces": None,
@@ -1760,12 +2199,16 @@ def kernels_line(nms_calls, align_calls, step_calls, main_path,
         "launches": train_path["launches"]["roi_align3d_backward"],
         "launches_per_step":
             train_path["launches_per_step"]["roi_align3d_backward"],
-        "max_abs_err": max(c["max_abs_err"] for c in calls),
+        "max_abs_err": max(c["max_abs_err"] for c in calls + learn_back),
         **_step_sums(calls), "library_ms": None,
         "profiled_ms_per_step":
             train_profile.get("port_kernels_ms", {}).get(
                 "roi_align3d_backward"),
         "matched": True, "per_step_calls": _per_call(calls),
+        "learn_launches": learn["launches"]["roi_align3d_backward"],
+        "learn_eval_launches": learn["eval_launches"]["roi_align3d_backward"],
+        "serve_launches": serve["launches"]["roi_align3d_backward"],
+        **_path_sums("learn_iter", learn_back),
     })
     return {"kernels": kernels}
 
@@ -1858,8 +2301,28 @@ def main():
     emit({"phase": "wholevol_tile_kernels", "ok": True, **tile_calls,
           "seconds": time.perf_counter() - t})
 
+    import shutil
+    import tempfile
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_learn_")
+    try:
+        t = time.perf_counter()
+        learn, data, learn_calls = run_learn(device, workdir)
+        emit({"phase": "learn", "ok": True, **learn,
+              "kernel_checks": learn_calls,
+              "seconds": time.perf_counter() - t})
+
+        t = time.perf_counter()
+        serve, serve_calls = run_serve(device, workdir, data)
+        emit({"phase": "serve", "ok": True, **serve,
+              "kernel_checks": serve_calls,
+              "seconds": time.perf_counter() - t})
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
     emit(kernels_line(nms_calls, align_calls, step_calls, main_path,
-                      train_calls, train_path, tile_calls, wholevol))
+                      train_calls, train_path, tile_calls, wholevol, learn,
+                      learn_calls, serve, serve_calls))
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

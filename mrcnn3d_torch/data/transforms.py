@@ -1,5 +1,5 @@
 """Host-side volume transforms (numpy), the port's copy of
-`mrcnn3d/data/transforms.py` (`pad_gt` comes with the data pipeline).
+`mrcnn3d/data/transforms.py`.
 
 Reference pipeline (mmdet/datasets/transforms.py + coco_3d*.py): per-slice
 grayscale->RGB repeat, mmcv imnormalize (RGB mean/std), pad to
@@ -40,3 +40,23 @@ def pad_to_divisor(vol_dhwc, divisor=32, depth_divisor=None):
         return vol_dhwc, (d, h, w)
     out = np.pad(vol_dhwc, ((0, pd), (0, ph), (0, pw), (0, 0)))
     return out, (d, h, w)
+
+
+def pad_gt(boxes, labels, max_gt, masks=None, mask_shape=None):
+    """Pad per-image ground truth to (max_gt, ...) with validity mask."""
+    n = min(len(boxes), max_gt)
+    labels = np.asarray(labels)
+    out_boxes = np.zeros((max_gt, 6), np.float32)
+    out_labels = np.zeros((max_gt,) + labels.shape[1:], np.int32)
+    out_valid = np.zeros((max_gt,), bool)
+    out_boxes[:n] = np.asarray(boxes, np.float32)[:n]
+    out_labels[:n] = np.asarray(labels, np.int32)[:n]
+    out_valid[:n] = True
+    out = dict(gt_boxes=out_boxes, gt_labels=out_labels, gt_valid=out_valid)
+    if masks is not None:
+        dm, hm, wm = mask_shape
+        out_masks = np.zeros((max_gt, dm, hm, wm), np.uint8)
+        for i in range(n):
+            out_masks[i] = masks[i]
+        out["gt_masks"] = out_masks
+    return out

@@ -25,10 +25,12 @@ def build_detector(cfg, dtype=torch.float32, device=None, seed=0,
     `device` (the card unless "cpu" is asked for), its weights drawn from
     `seed`, in channels_last_3d storage.
 
-    train=False: eval mode, no gradients, in `dtype`.  train=True: the
+    train=False: eval mode, no gradients, in `dtype`, frozen-BN
+    statistics drawn near identity (`init_weights`).  train=True: the
     training build, float32 parameters that require gradients (bf16
-    compute comes from autocast); the frozen-BN statistics stay buffers
-    and are never updated."""
+    compute comes from autocast), started where the JAX package's
+    `model.init` starts (`init_train_weights`); the frozen-BN statistics
+    stay buffers and are never updated."""
     device = resolve_device(device)
     m = cfg.model
     kind = m["type"]
@@ -59,7 +61,11 @@ def build_detector(cfg, dtype=torch.float32, device=None, seed=0,
         roi_size=bbox_roi.get("out_size", 7),
         roi_size_depth=bbox_roi.get("out_size_depth", 3),
     )
-    init_weights(model, torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed)
+    if train:
+        init_train_weights(model, gen)
+    else:
+        init_weights(model, gen)
     model = model.to(
         device=device, dtype=torch.float32 if train else dtype,
         memory_format=torch.channels_last_3d,
@@ -69,16 +75,54 @@ def build_detector(cfg, dtype=torch.float32, device=None, seed=0,
     return model.eval().requires_grad_(False)
 
 
+# flax's variance_scaling draws a standard normal truncated to [-2, 2]
+# and divides by that distribution's std, so the kernel's std is the
+# target 1 / sqrt(fan_in)
+TRUNC_NORMAL_STD = 0.87962566103423978
+
+
+def fan_in(mod):
+    """A conv, transposed conv or linear layer's fan_in as flax counts
+    it (receptive field times input features); None for other modules."""
+    if not isinstance(mod, (nn.Conv3d, nn.ConvTranspose3d, nn.Linear)):
+        return None
+    w = mod.weight
+    if isinstance(mod, nn.ConvTranspose3d):
+        return w.shape[0] * w[0, 0].numel()
+    return w[0].numel()
+
+
+def init_train_weights(model, generator):
+    """Where the JAX package's `model.init` starts training: flax's
+    lecun_normal kernels (a truncated normal of std 1 / sqrt(fan_in)),
+    zero biases, frozen BN at identity (mean 0, var 1, weight 1, bias 0,
+    `mrcnn3d/models/layers.py:FrozenBatchNorm`)."""
+    with torch.no_grad():
+        for mod in model.modules():
+            n = fan_in(mod)
+            if n is not None:
+                nn.init.trunc_normal_(mod.weight, 0.0, 1.0, -2.0, 2.0,
+                                      generator=generator)
+                mod.weight.mul_(1.0 / math.sqrt(n) / TRUNC_NORMAL_STD)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, FrozenBatchNorm):
+                mod.running_mean.zero_()
+                mod.running_var.fill_(1.0)
+                mod.weight.fill_(1.0)
+                mod.bias.zero_()
+
+
 def init_weights(model, generator):
-    """Seeded random weights: LeCun-normal kernels (the flax default),
-    zero biases, frozen-BN statistics near identity."""
+    """Seeded random weights for the inference build: plain-normal
+    kernels of std 1 / sqrt(fan_in), zero biases, frozen-BN statistics
+    near identity (drawn, so that the parity checks exercise them)."""
     for mod in model.modules():
-        if isinstance(mod, (nn.Conv3d, nn.ConvTranspose3d, nn.Linear)):
-            w = mod.weight
-            fan_in = w[0].numel() if not isinstance(
-                mod, nn.ConvTranspose3d) else w.shape[0] * w[0, 0].numel()
+        n = fan_in(mod)
+        if n is not None:
             with torch.no_grad():
-                w.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=generator)
+                mod.weight.normal_(0.0, 1.0 / math.sqrt(n),
+                                   generator=generator)
                 if mod.bias is not None:
                     mod.bias.zero_()
         elif isinstance(mod, FrozenBatchNorm):

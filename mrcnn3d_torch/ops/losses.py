@@ -13,9 +13,21 @@ import torch
 
 def _bce_with_logits(logits, labels):
     """Elementwise binary CE with logits, in the stable form
-    max(x, 0) - x * y + log(1 + exp(-|x|))."""
-    return (logits.clamp(min=0) - logits * labels
-            + torch.log1p(torch.exp(-logits.abs())))
+    max(x, 0) - x * y + log(1 + exp(-|x|)), JAX's (`mrcnn3d/ops/
+    losses.py:_bce_with_logits`) to the bit and in its gradient.
+
+    At x == 0 exactly the pieces are not differentiable and the two
+    frameworks pick other one-sided slopes: JAX takes 1/2 for max(x, 0)
+    (its tie rule) and +1 for |x|, so the loss's gradient there is -y;
+    torch's `clamp` takes 1 and `abs` 0, which gives 1 - y.  Logits are
+    exactly 0 wherever a head's last layer sees all-zero features while
+    its bias is still 0 (the first step from zero biases).  So max(x, 0)
+    is written (x + |x|) / 2 (slope 1/2 at 0) and the |x| inside the
+    log as a select on x >= 0 (slope +1 at 0): the same values, JAX's
+    slopes."""
+    relu = 0.5 * (logits + logits.abs())
+    mag = torch.where(logits >= 0, logits, -logits)
+    return relu - logits * labels + torch.log1p(torch.exp(-mag))
 
 
 def weighted_cross_entropy(logits, labels, weight, avg_factor):

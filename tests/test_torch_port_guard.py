@@ -1,6 +1,8 @@
 """The port stands alone: it imports neither JAX nor the JAX package
-(its training, whole-volume and evaluation modules included), and its
-entry points never fall back to the CPU on their own."""
+(its training, whole-volume, evaluation, data, API and tool modules
+included), and its entry points never fall back to the CPU on their
+own."""
+import os
 import subprocess
 import sys
 import textwrap
@@ -27,7 +29,12 @@ _SCRIPT = textwrap.dedent(
     for name in ("core.targets", "ops.losses", "train.optim", "train.step",
                  "train.checkpoint", "native", "ops.resize3d",
                  "data.transforms", "eval.masks", "eval.results",
-                 "eval.coco_eval3d", "apis.tiled", "apis.inference"):
+                 "eval.coco_eval3d", "apis.tiled", "apis.inference",
+                 "data.synthetic", "data.random_crop3d", "data.coco3d",
+                 "data.loader", "apis.train_api", "apis.test_api",
+                 "apis.serve", "tools.train", "tools.test",
+                 "tools.coco_eval", "tools.serve", "tools.test_images",
+                 "tools.learning_bench"):
         assert "mrcnn3d_torch." + name in names, name
     import chip_smoke
     from mrcnn3d_torch.entry import build_trainer
@@ -55,24 +62,43 @@ _SCRIPT = textwrap.dedent(
         dict(id=1, image_id=0, category_id=1, bbox=entries[0]["bbox"],
              segmentation=np.ones((8, 32, 48), np.uint8))])
     assert CocoEval3D(gt, entries, "segm").summarize().shape == (29,)
+    import tempfile
+    from mrcnn3d_torch.apis.train_api import train_detector
+    from mrcnn3d_torch.data.coco3d import Coco3D2ScalesDataset
+    from mrcnn3d_torch.data.synthetic import make_synthetic_coco3d
+    cfg = chip_smoke.small_train_config()
+    cfg.data["workers_per_gpu"] = 1
+    tr = cfg.data["train"]
+    with tempfile.TemporaryDirectory() as tmp:
+        ann, img_dir = make_synthetic_coco3d(tmp, num_volumes=2, hw=64,
+                                             depth=12, seed=0)
+        ds = Coco3D2ScalesDataset(ann, img_dir, max_gt=4,
+                                  img_norm_cfg=tr["img_norm_cfg"],
+                                  extra_aug=tr["extra_aug"])
+        stats = {}
+        state = train_detector(cfg, ds, work_dir=tmp, max_iters=2,
+                               device="cpu", stats=stats)
+        assert state.step == 2 and len(stats["losses"]) == 2
     torch.cuda.is_available = lambda: False
-    for entry in (build, build_trainer):
+    for entry in (build, build_trainer, lambda device: train_detector(
+            cfg, ds, device=device)):
         try:
             entry(device=None)
         except RuntimeError:
             pass
         else:
-            raise AssertionError(f"{entry.__name__}(device=None) ran "
-                                 "without CUDA")
+            raise AssertionError(f"{entry}(device=None) ran without CUDA")
     print(len(names), "modules")
     """
 )
 
 
 def test_port_imports_and_builds_without_jax():
+    # two intra-op threads: the tier-1 run shares the CPU among workers
+    env = dict(os.environ, OMP_NUM_THREADS="2", MKL_NUM_THREADS="2")
     proc = subprocess.run(
         [sys.executable, "-c", _SCRIPT], cwd=REPO, capture_output=True,
-        text=True, timeout=300,
+        text=True, timeout=300, env=env,
     )
     assert proc.returncode == 0, proc.stderr
     assert int(proc.stdout.split()[0]) >= 30, proc.stdout

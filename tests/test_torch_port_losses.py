@@ -85,6 +85,34 @@ def test_bce_stable_at_large_logits():
     np.testing.assert_allclose(got.numpy(), want, rtol=TOL, atol=TOL)
 
 
+@pytest.mark.parametrize("case", ["binary_cross_entropy",
+                                  "mask_cross_entropy"])
+def test_bce_gradient_at_zero_logits_matches_jax(case):
+    """Logits exactly 0 (a head's last layer on all-zero features, its
+    bias still 0: every first step from zero biases) among others: the
+    gradient equals jax.grad's, -y at 0 (torch's clamp and abs slopes
+    gave 1 - y there; ROADMAP Queue C 5)."""
+    import jax
+
+    x = _inputs(2)
+    x["blogits"][::3] = 0.0
+    x["mpred"][:, :, ::2] = 0.0
+    key = "blogits" if case == "binary_cross_entropy" else "mpred"
+
+    def jloss(v):
+        return CASES[case](jl, {**{k: jnp.asarray(a) for k, a in x.items()},
+                                key: v})
+
+    want = np.asarray(jax.grad(jloss)(jnp.asarray(x[key])))
+    t = {k: torch.as_tensor(v) for k, v in x.items()}
+    t[key] = t[key].clone().requires_grad_(True)
+    CASES[case](tl, t).backward()
+    got = t[key].grad.numpy()
+    zero = x[key] == 0
+    assert zero.sum() > 10 and np.abs(want[zero]).max() > 0
+    np.testing.assert_allclose(got, want, rtol=TOL, atol=TOL)
+
+
 @pytest.mark.parametrize("steps", [[], [2, 3]])
 def test_schedule_matches_optax(steps):
     """Warmup over 10 iterations from a third of the rate, then the step
