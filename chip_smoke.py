@@ -15,7 +15,13 @@ Phases, each printing one JSON line with its seconds:
                  thin-wide), 1e-4 in float32 and, in bfloat16, 2e-2 or one
                  bf16 step of the plain value.  K2's rois by path (window,
                  direct), as the kernel counts them, must equal its rule
-                 applied to the plain version's taps.  Median of CUDA-event
+                 applied to the plain version's taps.  K2's backward on
+                 the train step's 1.0x and 1.5x pyramids at bbox geometry
+                 (1024 rois), at mask geometry (260 rois), on 2000 rois of
+                 the kinds K2 reads directly, on 500 rois on one spot and
+                 on rows that add nothing (invalid, outside the volume),
+                 grad_out in float32 and in bfloat16, two launches each
+                 within 1e-4 of the largest gradient.  Median of CUDA-event
                  times, and device time per launch from torch.profiler.
   4. small    -- the narrow two-scale pipeline on the card (kernels) against
                  the CPU (plain versions): valid and labels equal, dets and
@@ -50,8 +56,10 @@ Phases, each printing one JSON line with its seconds:
                  step, and one step whose launches are recorded.
   9. train_step_kernels -- each launch of that recorded train step
                  against its plain version and timed alone: K1 and K2 as
-                 in phase 6, K2's backward within 1e-4 of the largest
-                 gradient (float atomics add in another order).
+                 in phase 6, K2's backward as in phase 3 (float atomics
+                 add in an order that varies), its time that of the whole
+                 backward of RoIAlign3DFunction (the launch and the cast
+                 to the levels' dtype).
  10. small_tiled -- whole-volume tiled inference of the narrow config
                  (budgets 64, masks on) over a seeded 16x64x64 volume in
                  27 tiles, 8 detections kept per tile, on the card
@@ -99,9 +107,18 @@ Phases, each printing one JSON line with its seconds:
 Then the kernels line, the card line and, last, the result line
 {"ok": true, "device": {...}}.  Any failure raises: the exit code is then
 not 0 and no result line is printed.
+
+    python3 chip_smoke.py --only train|learn [--port DIR]
+
+runs phases 1-2 and then only phases 8-9 (train) or 13-14 (learn and
+serve), and prints no result line: the way to set two versions of the
+port side by side on one card.  --port takes another checkout (an older
+commit unpacked with git archive) whose mrcnn3d_torch these phases then
+drive; run it from this one, in turns with --port left out.
 """
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import statistics
@@ -127,7 +144,8 @@ NMS_CLASSWISE_K = 4000
 ALIGN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 PIPELINE_ATOL = 2e-3
 # K2's backward against its plain version: relative to the largest
-# gradient of the launch (float atomics and index_add_ sum in any order)
+# gradient of the launch (the kernel and index_add_ sum in other orders);
+# a bfloat16 gradient may also differ by one bf16 step of the plain value
 BACKWARD_TOL = 1e-4
 # bench.py's training geometry: the 1.0x crop (D, H, W), batch, max_gt
 TRAIN_CROP = (64, 128, 128)
@@ -139,15 +157,17 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def require_card():
+def require_card(port=REPO):
+    """CUDA and a checkout whose mrcnn3d_torch the phases import: this
+    one, or `port`."""
     import torch
 
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: CUDA is not available")
-    if not os.path.isdir(os.path.join(REPO, "mrcnn3d_torch", "csrc")):
+    if not os.path.isdir(os.path.join(port, "mrcnn3d_torch", "csrc")):
         raise SystemExit("chip_smoke.py: run it from a checkout of the repo")
-    if REPO not in sys.path:
-        sys.path.insert(0, REPO)
+    if sys.path[:1] != [port]:
+        sys.path.insert(0, port)
 
 
 def card_line():
@@ -181,7 +201,8 @@ def time_ms(fn, iters=10, warmup=1):
 KERNEL_CUDA_NAMES = {
     "nms3d": ("nms3d_mask_kernel", "nms3d_scan_kernel"),
     "roi_align3d": ("roi_align3d_kernel", "roi_align3d_direct_kernel"),
-    "roi_align3d_backward": ("roi_align3d_backward_kernel",),
+    "roi_align3d_backward": ("roi_align3d_backward_kernel",
+                             "roi_align3d_backward_contract_kernel"),
 }
 
 
@@ -1314,63 +1335,164 @@ def _fold_counts(lo, hi, wl, wh, inr, pooled, sn):
 
 def backward_case(name, args):
     """K2's backward against its plain version on one launch's arguments
-    (those of `roi_align_3d_backward_cuda`): within BACKWARD_TOL of the
-    largest gradient; median event times of both versions and the
-    kernel's device time per launch (the scatter kernel alone, not the
-    memset of the gradient buffer before it); the bound of this work:
-    the touched voxels of the float32 gradient written once, the valid
-    rois' rows of grad_out and their rois and levels read once, every
-    roi's flag read once (the kernel returns at once on an invalid roi);
-    a multiply and an add per scattered value, as the kernel folds each
-    bin's samples per axis."""
+    (those of `roi_align_3d_backward_cuda`), launched twice: each time
+    every gradient within BACKWARD_TOL of the largest plain gradient or,
+    where the launch returns bfloat16, one bf16 step of the plain value.
+    Median event times of the whole backward as RoIAlign3DFunction runs
+    it (the launch, then each gradient cast to the levels' dtype, which is
+    grad_out's) and of the plain version; the kernel's device time per
+    launch (not the memset of the float32 buffer before it).  The bound of
+    this work: the touched voxels of the gradient written once in the
+    levels' dtype, the valid rois' rows of grad_out and their rois and
+    levels read once, every roi's flag read once; a multiply and an add
+    per (bin, voxel) pair of the folded samples.  dense_bytes: every voxel
+    of every level's gradient written once in its dtype;
+    adds_per_window_value: the 5th, 50th and 95th percentile over the
+    valid rois of the adds a scatter from the bins makes per value of the
+    roi's window (what the contraction saves)."""
+    import math
+
     import torch
 
     from mrcnn3d_torch.ops import roi_align3d as ra
 
     grad_out, shapes, rois, levels, valid, out, out_d, strides, strides_d, \
         sn = args
-    got = ra.roi_align_3d_backward_cuda(*args)
+    dtype = grad_out.dtype
     want = ra.roi_align_3d_backward_plain(*args)
-    torch.cuda.synchronize()
-    if [g.dtype for g in got] != [torch.float32] * len(shapes) or \
-            [tuple(g.shape) for g in got] != [tuple(s) for s in shapes]:
-        raise AssertionError(f"K2 backward {name}: gradient dtype or shape")
-    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
     scale = max(float(w.abs().max()) for w in want)
-    if not err <= BACKWARD_TOL * scale:
-        raise AssertionError(f"K2 backward {name}: max error {err}, "
-                             f"largest gradient {scale}")
-    del got, want
-    ms = time_ms(lambda: ra.roi_align_3d_backward_cuda(*args))
+    err = 0.0
+    for _ in range(2):
+        got = ra.roi_align_3d_backward_cuda(*args)
+        torch.cuda.synchronize()
+        if [tuple(g.shape) for g in got] != [tuple(s) for s in shapes]:
+            raise AssertionError(f"K2 backward {name}: gradient shapes")
+        bad = 0
+        for g, w in zip(got, want):
+            diff = (g.float() - w).abs()
+            err = max(err, float(diff.max()) if diff.numel() else 0.0)
+            ok = diff <= BACKWARD_TOL * scale
+            if g.dtype == torch.bfloat16:
+                _, e = torch.frexp(w)
+                ok |= diff <= torch.ldexp(torch.ones_like(diff), e - 8)
+            bad += int((~ok).sum())
+        if bad:
+            raise AssertionError(f"K2 backward {name} {dtype}: {bad} values "
+                                 f"differ by more than {BACKWARD_TOL} of the "
+                                 f"largest gradient {scale}; max error "
+                                 f"{err}")
+        del got
+    del want
+    ms = time_ms(lambda: [g.to(dtype) for g in
+                          ra.roi_align_3d_backward_cuda(*args)])
     dev_ms = device_ms(lambda: ra.roi_align_3d_backward_cuda(*args),
                        KERNEL_CUDA_NAMES["roi_align3d_backward"])
     plain_ms = time_ms(lambda: ra.roi_align_3d_backward_plain(*args),
                        iters=2, warmup=0)
     c = shapes[0][-1]
-    meta = [torch.empty(s, dtype=torch.float32, device="meta")
-            for s in shapes]
+    elt = grad_out.element_size()
+    empty = [torch.empty(s, dtype=dtype, device="meta") for s in shapes]
     sel = valid.bool().cpu()
     r, lv = rois.cpu()[sel].float(), levels.cpu()[sel]
-    taps = axis_taps(r, lv, meta, out, out_d, strides, strides_d, sn)
+    taps = axis_taps(r, lv, empty, out, out_d, strides, strides_d, sn)
     fx, fy, fz = (_fold_counts(*t, pooled, sn).sum(1)
                   for t, pooled in zip(taps, (out, out, out_d)))
     adds = int((fx * fy * fz).sum()) * c
-    geo = align_geometry(meta, rois, levels, valid, out, out_d, strides,
+    # the adds a scatter makes per value of each roi's window
+    window = math.prod(_span(t[0], t[1], t[4])[1] for t in taps)
+    per_value = (fx * fy * fz)[window > 0] / window[window > 0]
+    geo = align_geometry(empty, rois, levels, valid, out, out_d, strides,
                          strides_d, sn)
     n_valid = int(sel.sum())
-    nbytes = (geo["touched_bytes"]
-              + n_valid * grad_out[0].numel() * grad_out.element_size()
+    nbytes = (geo["touched_bytes"] + n_valid * grad_out[0].numel() * elt
               + n_valid * (7 * 4 + 4) + rois.shape[0])
     b_ms, b_by = bound(nbytes, 2 * adds)
     return dict(
-        name=name, grad_out_dtype=str(grad_out.dtype).split(".")[-1],
+        name=name, grad_out_dtype=str(dtype).split(".")[-1],
         rois=rois.shape[0], valid=n_valid, adds=adds,
+        adds_per_window_value=per_value.quantile(
+            torch.tensor([0.05, 0.5, 0.95])).tolist()
+        if per_value.numel() else None,
         touched_bytes=geo["touched_bytes"], max_abs_grad=scale,
         ms=ms, device_ms=dev_ms and sum_or_none(dev_ms.values()),
         device_ms_by_kernel=dev_ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, bytes=nbytes, ops=2 * adds, max_abs_err=err,
-        tol=BACKWARD_TOL * scale,
+        bound_by=b_by, bytes=nbytes, ops=2 * adds,
+        dense_bytes=sum(math.prod(s) for s in shapes) * elt,
+        max_abs_err=err, tol=BACKWARD_TOL * scale,
     )
+
+
+def train_level_shapes(model, scale):
+    """The (B, D, H, W, C) levels of the train step's pyramid at a scale
+    (1.0 or 1.5) of bench.py's training crop."""
+    c = model.neck.fpn_convs[0].conv.out_channels
+    crop = tuple(int(v * scale) for v in TRAIN_CROP)
+    return [(TRAIN_BATCH, *s, c) for s in model.featmap_sizes(crop)[:4]]
+
+
+def check_backward(gen, det, device):
+    """K2's backward on synthetic rois, each case with grad_out in float32
+    and in bfloat16: bbox geometry on the train step's
+    1.0x and 1.5x pyramids (1024 proposal-like rois over its 2 images);
+    mask geometry (260 rois); 2000 rois of the kinds K2's forward reads
+    directly, on the 1.0x main-path pyramid; 500 rois on one spot (their
+    windows add to the same voxels); and rows that add nothing (half
+    invalid, some wholly outside the volume)."""
+    import torch
+
+    from mrcnn3d_torch.ops import roi_align3d as ra
+
+    bcfg = align_cfg(det.cfg, "bbox")
+    mcfg = align_cfg(det.cfg, "mask")
+    c = det.model.neck.fpn_convs[0].conv.out_channels
+    main = [(1, *s, c) for s in det.model.featmap_sizes(MAIN_SHAPES[0])[:4]]
+
+    def proposals(k, scale):
+        crop = tuple(int(v * scale) for v in TRAIN_CROP)
+        boxes, _, valid = proposal_boxes(gen, k, crop, device)
+        b = torch.randint(0, TRAIN_BATCH, (k, 1), generator=gen,
+                          device=device).float()
+        return torch.cat([b, boxes], 1), valid
+
+    def one_spot(k):
+        d, h, w = TRAIN_CROP
+        rois = torch.tensor([[1.0, 0.3 * w, 0.4 * h, 0.5 * w, 0.58 * h,
+                              0.3 * d, 0.4 * d]], device=device).repeat(k, 1)
+        rois[:, 1:] += torch.rand((k, 6), generator=gen, device=device) * 4
+        return rois, torch.ones(k, dtype=torch.bool, device=device)
+
+    def nothing(k):
+        rois, valid = proposals(k, 1.0)
+        valid &= torch.rand((k,), generator=gen, device=device) > 0.5
+        rois[: k // 8, 1:5] += TRAIN_CROP[2] * 2.0
+        return rois, valid
+
+    cases = [
+        ("bbox_1.0x", train_level_shapes(det.model, 1.0), bcfg,
+         proposals(1024, 1.0)),
+        ("bbox_1.5x", train_level_shapes(det.model, 1.5), bcfg,
+         proposals(1024, 1.5)),
+        ("mask_1.0x", train_level_shapes(det.model, 1.0), mcfg,
+         proposals(260, 1.0)),
+        ("mask_1.0x_direct_kinds", main, mcfg,
+         (direct_rois(gen, MAIN_BUDGET, MAIN_SHAPES[0], device),
+          torch.ones(MAIN_BUDGET, dtype=torch.bool, device=device))),
+        ("mask_1.0x_one_spot", train_level_shapes(det.model, 1.0), mcfg,
+         one_spot(500)),
+        ("bbox_1.0x_invalid_rows", train_level_shapes(det.model, 1.0), bcfg,
+         nothing(1024)),
+    ]
+    calls = []
+    for name, shapes, (out, out_d, strides, strides_d, sn), (rois, valid) \
+            in cases:
+        levels = ra.map_roi_levels(rois, len(shapes))
+        for dtype in (torch.float32, torch.bfloat16):
+            grad = torch.randn((rois.shape[0], c, out_d, out, out),
+                               generator=gen, device=device).to(dtype)
+            calls.append(backward_case(name, (
+                grad, shapes, rois, levels, valid, out, out_d, strides,
+                strides_d, sn)))
+    return calls
 
 
 def check_train_step_kernels(captured):
@@ -2121,9 +2243,9 @@ def _path_sums(prefix, calls):
             f"{prefix}_calls": _per_call(calls)}
 
 
-def kernels_line(nms_calls, align_calls, step_calls, main_path,
-                 train_calls, train_path, tile_calls, wholevol, learn,
-                 learn_calls, serve, serve_calls):
+def kernels_line(nms_calls, align_calls, backward_calls, step_calls,
+                 main_path, train_calls, train_path, tile_calls, wholevol,
+                 learn, learn_calls, serve, serve_calls):
     """The {"kernels": [...]} record.  Per kernel: launches from the
     counted run of its path (K1 and K2: the inference main path, with the
     train path's beside them as train_* and the whole volume's as
@@ -2199,7 +2321,8 @@ def kernels_line(nms_calls, align_calls, step_calls, main_path,
         "launches": train_path["launches"]["roi_align3d_backward"],
         "launches_per_step":
             train_path["launches_per_step"]["roi_align3d_backward"],
-        "max_abs_err": max(c["max_abs_err"] for c in calls + learn_back),
+        "max_abs_err": max(c["max_abs_err"]
+                           for c in calls + learn_back + backward_calls),
         **_step_sums(calls), "library_ms": None,
         "profiled_ms_per_step":
             train_profile.get("port_kernels_ms", {}).get(
@@ -2213,13 +2336,64 @@ def kernels_line(nms_calls, align_calls, step_calls, main_path,
     return {"kernels": kernels}
 
 
-def main():
+def run_train_phases(device):
+    """Phases 8-9: the flagship's train step, then its launches alone."""
+    t = time.perf_counter()
+    train_path, captured = run_train_path(device)
+    emit({"phase": "train", "ok": True, **train_path,
+          "seconds": time.perf_counter() - t})
+
+    t = time.perf_counter()
+    train_calls = check_train_step_kernels(captured)
+    del captured
+    emit({"phase": "train_step_kernels", "ok": True, **train_calls,
+          "seconds": time.perf_counter() - t})
+    return train_path, train_calls
+
+
+def run_learn_phases(device):
+    """Phases 13-14: the learning protocol cut short, then serving its
+    checkpoint, in a temporary work directory."""
+    import shutil
+    import tempfile
+
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_learn_")
+    try:
+        t = time.perf_counter()
+        learn, data, learn_calls = run_learn(device, workdir)
+        emit({"phase": "learn", "ok": True, **learn,
+              "kernel_checks": learn_calls,
+              "seconds": time.perf_counter() - t})
+
+        t = time.perf_counter()
+        serve, serve_calls = run_serve(device, workdir, data)
+        emit({"phase": "serve", "ok": True, **serve,
+              "kernel_checks": serve_calls,
+              "seconds": time.perf_counter() - t})
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    return learn, learn_calls, serve, serve_calls
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    p.add_argument("--only", choices=("train", "learn"),
+                   help="run phases 1-2 and then only these")
+    p.add_argument("--port", default=REPO,
+                   help="the checkout whose mrcnn3d_torch is driven")
+    args = p.parse_args(argv)
+    port = os.path.abspath(args.port)
     t_start = time.perf_counter()
-    require_card()
+    require_card(port)
     import torch
 
+    import mrcnn3d_torch
+
+    if not mrcnn3d_torch.__file__.startswith(port + os.sep):
+        raise SystemExit(f"chip_smoke.py: mrcnn3d_torch came from "
+                         f"{mrcnn3d_torch.__file__}, not {port}")
     card = card_line()
-    emit({"phase": "device", "ok": True, "card": card,
+    emit({"phase": "device", "ok": True, "card": card, "port": port,
           "kind": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(),
           "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -2241,6 +2415,11 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda", 0)
+    if args.only:
+        {"train": run_train_phases, "learn": run_learn_phases}[args.only](
+            device)
+        print(card, flush=True)
+        return 0
 
     from mrcnn3d_torch.entry import build
 
@@ -2249,9 +2428,11 @@ def main():
     nms_calls = check_nms(gen, device)
     shape_model = build(CONFIG, device=device, budgets=MAIN_BUDGET)
     align_calls = check_align(gen, shape_model, device)
+    backward_calls = check_backward(gen, shape_model, device)
     del shape_model
     emit({"phase": "kernels", "ok": True, "nms3d": nms_calls,
-          "roi_align3d": align_calls, "seconds": time.perf_counter() - t})
+          "roi_align3d": align_calls, "roi_align3d_backward": backward_calls,
+          "seconds": time.perf_counter() - t})
 
     t = time.perf_counter()
     small = check_small_pipeline(device)
@@ -2274,16 +2455,7 @@ def main():
     emit({"phase": "small_train", "ok": True, **small_train,
           "seconds": time.perf_counter() - t})
 
-    t = time.perf_counter()
-    train_path, captured = run_train_path(device)
-    emit({"phase": "train", "ok": True, **train_path,
-          "seconds": time.perf_counter() - t})
-
-    t = time.perf_counter()
-    train_calls = check_train_step_kernels(captured)
-    del captured
-    emit({"phase": "train_step_kernels", "ok": True, **train_calls,
-          "seconds": time.perf_counter() - t})
+    train_path, train_calls = run_train_phases(device)
 
     t = time.perf_counter()
     small_tiled = check_small_tiled(device)
@@ -2301,28 +2473,11 @@ def main():
     emit({"phase": "wholevol_tile_kernels", "ok": True, **tile_calls,
           "seconds": time.perf_counter() - t})
 
-    import shutil
-    import tempfile
+    learn, learn_calls, serve, serve_calls = run_learn_phases(device)
 
-    workdir = tempfile.mkdtemp(prefix="chip_smoke_learn_")
-    try:
-        t = time.perf_counter()
-        learn, data, learn_calls = run_learn(device, workdir)
-        emit({"phase": "learn", "ok": True, **learn,
-              "kernel_checks": learn_calls,
-              "seconds": time.perf_counter() - t})
-
-        t = time.perf_counter()
-        serve, serve_calls = run_serve(device, workdir, data)
-        emit({"phase": "serve", "ok": True, **serve,
-              "kernel_checks": serve_calls,
-              "seconds": time.perf_counter() - t})
-    finally:
-        shutil.rmtree(workdir, ignore_errors=True)
-
-    emit(kernels_line(nms_calls, align_calls, step_calls, main_path,
-                      train_calls, train_path, tile_calls, wholevol, learn,
-                      learn_calls, serve, serve_calls))
+    emit(kernels_line(nms_calls, align_calls, backward_calls, step_calls,
+                      main_path, train_calls, train_path, tile_calls,
+                      wholevol, learn, learn_calls, serve, serve_calls))
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -729,31 +729,57 @@ int launch(const Levels& lv, const void* rois, const void* levels,
 //
 // No TPU counterpart: the JAX package differentiates its dense XLA align
 // (mrcnn3d/ops/roi_align3d.py:multi_level_roi_align_3d_dense).  The
-// reference's method (ROIAlignBackward3D): each sample scatters its bin's
-// gradient / sn^3 times its 8 trilinear corner weights, with atomicAdd,
-// into a float32 gradient buffer laid out as the levels,
-// (B, D, H, W, C).  The taps are the forward's: roi_frame, tap and
-// roi_tables, so the gradient lands on the voxels the forward read.
+// reference's method (ROIAlignBackward3D) scatters each sample's bin
+// gradient / sn^3 times its 8 trilinear corner weights with atomicAdd.
+// The taps here are the forward's (roi_frame, tap, roi_tables), so the
+// gradient lands on the voxels the forward read.
 //
-// Design: one block of 128 threads per (roi, 32 channels, output depth
-// plane); invalid rois return at once.  A block per depth plane keeps
-// the card busy when few rois are valid (the mask aligns of a train step
-// have 30-260) and spreads a roi's atomics over time.  The trilinear
-// weights are per-axis products, so a bin's samples fold per axis into
-// distinct voxels with summed weights (the z planes of roi_tables; the x
-// and y folds below): a bin scatters (z planes) x (y voxels) x (x
-// voxels) adds, 8-27 for sn = 2, in place of sn^3 x 8 = 64.  The block
-// stages the bin gradients of its depth plane and 32 channels in shared
-// memory (rows of a channel read contiguously from (N, C, od, o, o)),
-// then a warp takes one bin and its lanes the channels, so each atomic
-// instruction of a warp adds to one voxel's 32 contiguous floats.
+// Design: two kernels, one per launch, chosen by the align's geometry.
+// The trilinear weights are per-axis products, and a bin's samples fold
+// per axis into distinct voxels with summed weights (the z planes of
+// roi_tables, fold_bin for y and x).  A scatter from the bins adds once
+// per (bin, folded voxel); where a roi has many bins, many of them land
+// on each voxel of its window: a mask roi (14 x 14 x 10 bins) adds 36-224
+// times per value of its window at the training shapes, a bbox roi (7 x
+// 7 x 3) 5-21 times.  So a launch whose rois have at least
+// kContractBins (512) bins contracts, the others scatter.
+//   * Scatter (roi_align3d_backward_kernel): one block of 128 threads
+//     per (roi, 32 channels, depth plane pz) stages pz's bin gradients in
+//     shared memory (rows of a channel read contiguously from (N, C, od,
+//     o, o)); then a warp takes one bin and its lanes the channels, and
+//     adds each folded voxel with one float atomicAdd, so each atomic
+//     instruction of a warp adds to one voxel's 32 contiguous floats.  A
+//     block per depth plane keeps the card busy when few rois are valid
+//     and spreads a roi's atomics over time.
+//   * Contraction (roi_align3d_backward_contract_kernel): one block of
+//     256 threads per (roi, 16 channels, z group); block z takes the z
+//     planes zmin + z, zmin + z + Q, ... of the roi (Q = od / 3 groups)
+//     and computes each plane's gradient on the roi's window (the span
+//     of its in-range taps) in shared memory, in chunks of at most kChunk
+//     x kChunk voxels, as a separable sum:
+//         G[py, px, c] = sum_pz wz(pz, zz) g[c, pz, py, px] / sn^3
+//         T[py, x, c]  = sum_px wx(px, x) G[py, px, c]
+//         grad[zz, y, x, c] += sum_py wy(py, y) T[py, x, c]
+//     a thread per (row, column, channel) of each step, summing in
+//     registers; then it adds each voxel's 16 channels with four 16-byte
+//     atomics (red.global.add.v4.f32), skipping voxels no tap reached.
+//     A voxel gets one add per roi where the scatter adds once per bin.
+// The gradient is a float32 buffer, zeroed first (cudaMemsetAsync); the
+// wrapper casts it to a bfloat16 level's dtype.  Atomics add in an order
+// that changes from run to run, so the result varies in its last bits.
 //
-// What bounds it: the atomics into L2 (a few hundred million adds at
-// the mask align's training shapes); the bytes it must move (each
-// touched gradient voxel and grad_out once) bound it far lower.
-// Accumulating a roi's window in shared memory first, the transpose of
-// the forward's window path, is the step that would cut the atomics.
+// What bounds it: the atomics into L2 (scatter) and the roi's setup and
+// four barriers per z plane (contraction); the bytes it must move (each
+// touched gradient voxel and grad_out once) bound it far lower, and the
+// memset writes every voxel of the levels.
 // ---------------------------------------------------------------------------
+
+constexpr int kBwdThreads = 256;  // threads of a contraction block
+constexpr int kBwdChannels = 16;  // channels of a contraction block
+constexpr int kChunk = 16;  // y and x voxels of a window chunk
+// a launch contracts when its rois have at least this many bins
+constexpr int kContractBins = 512;
+constexpr int kMaxDevices = 16;
 
 // distinct voxels of one output bin along one axis, with summed weights
 struct Fold {
@@ -787,9 +813,9 @@ __device__ __forceinline__ float to_float(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-// grid (rois, channel blocks, od); grad: one float32 (B, D, H, W, C)
-// buffer per level (lv.ptr), zeroed before the launch.  grad_out
-// (N, C, od, o, o)
+// grid (rois, channel blocks, od): block (n, cz, pz) scatters roi n's
+// depth plane pz.  grad: one float32 (B, D, H, W, C) buffer per level
+// (lv.ptr), zeroed before the launch.  grad_out (N, C, od, o, o)
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 roi_align3d_backward_kernel(Levels lv, const float* __restrict__ rois,
@@ -852,6 +878,175 @@ roi_align3d_backward_kernel(Levels lv, const float* __restrict__ rois,
   }
 }
 
+// channels of one backward block: all of them up to kBwdChannels
+__host__ __device__ __forceinline__ int bwd_channel_block(int channels) {
+  return channels < kBwdChannels ? channels : kBwdChannels;
+}
+
+// floats of a backward block's dynamic shared memory: G (o*o rows of
+// cb + 1, padded to 16 bytes), T (o, kChunk, cb), the chunk's gradient
+// (kChunk, kChunk, cb), and the chunk's x and y weights (o, kChunk) each
+__host__ __device__ __forceinline__ int backward_floats(int cb, int o) {
+  return ((o * o * (cb + 1) + 3) & ~3) + o * kChunk * cb +
+         kChunk * kChunk * cb + 2 * o * kChunk;
+}
+
+// grid (rois, channel blocks, Q): block (n, cz, z) adds roi n's gradient
+// for channels cz*cb..(cz+1)*cb to its z planes zmin + z, zmin + z + Q,
+// ...  grad: one float32 (B, D, H, W, C) buffer per level (lv.ptr),
+// zeroed before the launch.  grad_out (N, C, od, o, o)
+template <typename T>
+__global__ void __launch_bounds__(kBwdThreads)
+roi_align3d_backward_contract_kernel(
+    Levels lv, const float* __restrict__ rois, const int* __restrict__ levels,
+    const unsigned char* __restrict__ valid, const T* __restrict__ grad_out,
+    int channels, int out_size, int out_d, int sn) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ RoiTables tb;
+  __shared__ Fold fx[kMaxTaps], fy[kMaxTaps];
+  __shared__ float zw[kMaxOutD];  // each depth plane's weight on plane zz
+  __shared__ int zspan[2];
+
+  const int n = blockIdx.x, tid = threadIdx.x;
+  const int o = out_size, oo = o * o;
+  const int cb = bwd_channel_block(channels), c0 = blockIdx.y * cb;
+  float box[7];
+#pragma unroll
+  for (int k = 0; k < 7; ++k) box[k] = __ldg(rois + n * 7 + k);
+  const int l = __ldg(levels + n);
+  if (!__ldg(valid + n)) return;
+  const Frame f = roi_frame(lv, box, l, o, out_d);
+  roi_tables(tb, f, o, out_d, sn);
+  if (tid < o) fold_bin(fx[tid], tb.tx, tid, sn);
+  if (tid >= 64 && tid - 64 < o) fold_bin(fy[tid - 64], tb.ty, tid - 64, sn);
+  if (tid >= 32 && tid < 64) {  // warp 1: the span of the z planes
+    int lo = INT_MAX, hi = -1;
+    for (int j = tid - 32; j < tb.item0[out_d]; j += 32) {
+      lo = min(lo, tb.plane[j]);
+      hi = max(hi, tb.plane[j]);
+    }
+    lo = __reduce_min_sync(0xffffffffu, lo);
+    hi = __reduce_max_sync(0xffffffffu, hi);
+    if (tid == 32) {
+      zspan[0] = lo;
+      zspan[1] = hi;
+    }
+  }
+  __syncthreads();
+  // no x, y or z tap in range
+  if (tb.span[1] < 0 || tb.span[3] < 0 || zspan[1] < 0) return;
+
+  const int pg = cb + 1;  // G's row pitch: conflict-free by row and by lane
+  float* G = reinterpret_cast<float*>(smem);
+  float* Tx = G + ((oo * pg + 3) & ~3);
+  float* A = Tx + o * kChunk * cb;
+  float* Wx = A + kChunk * kChunk * cb;
+  float* Wy = Wx + o * kChunk;
+  const T* go = grad_out + (static_cast<size_t>(n) * channels + c0) *
+                               out_d * oo;
+  const float inv_count = 1.0f / static_cast<float>(sn * sn * sn);
+  const size_t row = static_cast<size_t>(f.W) * channels;
+  const size_t plane = static_cast<size_t>(f.H) * row;
+  float* gb = static_cast<float*>(const_cast<void*>(lv.ptr[l])) +
+              static_cast<size_t>(f.b) * f.D * plane + c0;
+  const int x0 = tb.span[0], nx = tb.span[1] - x0 + 1;
+  const int y0 = tb.span[2], ny = tb.span[3] - y0 + 1;
+  if (zspan[0] + static_cast<int>(blockIdx.z) > zspan[1]) return;
+  const int cx = min(nx, kChunk), cy = min(ny, kChunk);
+  const int cq = cb / 4;  // 16-byte groups of a voxel's channels
+  for (int ya = y0; ya < y0 + ny; ya += cy) {
+    for (int xa = x0; xa < x0 + nx; xa += cx) {
+      // the chunk's weights: Wx (o, cx), Wy (o, cy), a bin's row by one
+      // thread
+      for (int e = tid; e < o * (cx + cy); e += blockDim.x)
+        (e < o * cx ? Wx[e] : Wy[e - o * cx]) = 0.0f;
+      __syncthreads();
+      if (tid < o) {
+        const Fold& a = fx[tid];
+        for (int k = 0; k < a.n; ++k)
+          if (a.idx[k] >= xa && a.idx[k] < xa + cx)
+            Wx[tid * cx + a.idx[k] - xa] = a.w[k];
+      } else if (tid >= 64 && tid - 64 < o) {
+        const Fold& a = fy[tid - 64];
+        for (int k = 0; k < a.n; ++k)
+          if (a.idx[k] >= ya && a.idx[k] < ya + cy)
+            Wy[(tid - 64) * cy + a.idx[k] - ya] = a.w[k];
+      }
+      for (int zz = zspan[0] + blockIdx.z; zz <= zspan[1];
+           zz += gridDim.z) {
+        if (tid < 32) {
+          for (int pz = tid; pz < out_d; pz += 32) {
+            float w = 0.0f;
+            for (int j = tb.item0[pz]; j < tb.item0[pz + 1]; ++j)
+              if (tb.plane[j] == zz) w = tb.w[j];
+            zw[pz] = w;
+          }
+        }
+        __syncthreads();
+        for (int e = tid; e < cb * oo; e += blockDim.x) {
+          const int c = e / oo, pos = e - c * oo;
+          const T* gc = go + static_cast<size_t>(c) * out_d * oo + pos;
+          float v = 0.0f;
+          for (int pz = 0; pz < out_d; ++pz) {
+            const float w = zw[pz];
+            if (w != 0.0f) v += w * to_float(gc[pz * oo]);
+          }
+          G[pos * pg + c] = v * inv_count;
+        }
+        __syncthreads();
+        for (int e = tid; e < o * cx * cb; e += blockDim.x) {
+          const int c = e % cb, r = e / cb, xi = r % cx, py = r / cx;
+          const float* gr = G + py * o * pg + c;
+          float v = 0.0f;
+          for (int px = 0; px < o; ++px) {
+            const float w = Wx[px * cx + xi];
+            if (w != 0.0f) v += w * gr[px * pg];
+          }
+          Tx[e] = v;
+        }
+        __syncthreads();
+        for (int e = tid; e < cy * cx * cb; e += blockDim.x) {
+          const int c = e % cb, r = e / cb, xi = r % cx, yi = r / cx;
+          float v = 0.0f;
+          for (int py = 0; py < o; ++py) {
+            const float w = Wy[py * cy + yi];
+            if (w != 0.0f) v += w * Tx[(py * cx + xi) * cb + c];
+          }
+          A[e] = v;
+        }
+        __syncthreads();
+        float* gz = gb + static_cast<size_t>(zz) * plane;
+        for (int e = tid; e < cy * cx * cq; e += blockDim.x) {
+          const float4 v = reinterpret_cast<const float4*>(A)[e];
+          if (v.x == 0.0f && v.y == 0.0f && v.z == 0.0f && v.w == 0.0f)
+            continue;
+          const int vox = e / cq, q = e - vox * cq;
+          const int y = ya + vox / cx, x = xa + vox % cx;
+          atomicAdd(reinterpret_cast<float4*>(
+                        gz + y * row + static_cast<size_t>(x) * channels +
+                        4 * q),
+                    v);
+        }
+      }
+      __syncthreads();  // the chunk's weights are read before the next's
+    }
+  }
+}
+
+// sets fn's dynamic shared memory to at least `bytes`, once per device
+template <typename F>
+cudaError_t reserve_smem(F* fn, int bytes, int* set_bytes) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (bytes <= set_bytes[dev]) return cudaSuccess;
+  err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+  if (err == cudaSuccess) set_bytes[dev] = bytes;
+  return err;
+}
+
 template <typename T>
 int launch_backward(const Levels& lv, const void* rois, const void* levels,
                     const void* valid, const void* grad_out, void* grad,
@@ -859,18 +1054,32 @@ int launch_backward(const Levels& lv, const void* rois, const void* levels,
                     int out_d, int sn, cudaStream_t s) {
   cudaError_t err = cudaMemsetAsync(grad, 0, grad_bytes, s);
   if (err != cudaSuccess || n == 0) return static_cast<int>(err);
-  const int cb = channel_block(channels);
-  const int tile = cb * tile_pitch(out_size) * 4;
-  err = cudaFuncSetAttribute(roi_align3d_backward_kernel<T>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             tile);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  roi_align3d_backward_kernel<T>
-      <<<dim3(n, channels / cb, out_d), kThreads, tile, s>>>(
-          lv, static_cast<const float*>(rois),
-          static_cast<const int*>(levels),
-          static_cast<const unsigned char*>(valid),
-          static_cast<const T*>(grad_out), channels, out_size, out_d, sn);
+  // the attributes are set once, not on every launch
+  static int scatter_bytes[kMaxDevices] = {};
+  static int contract_bytes[kMaxDevices] = {};
+  const float* r = static_cast<const float*>(rois);
+  const int* lvl = static_cast<const int*>(levels);
+  const unsigned char* ok = static_cast<const unsigned char*>(valid);
+  const T* go = static_cast<const T*>(grad_out);
+  if (out_size * out_size * out_d >= kContractBins) {
+    const int cb = bwd_channel_block(channels);
+    const int smem = backward_floats(cb, out_size) * 4;
+    err = reserve_smem(roi_align3d_backward_contract_kernel<T>, smem,
+                       contract_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int groups = out_d / 3 > 1 ? out_d / 3 : 1;
+    roi_align3d_backward_contract_kernel<T>
+        <<<dim3(n, channels / cb, groups), kBwdThreads, smem, s>>>(
+            lv, r, lvl, ok, go, channels, out_size, out_d, sn);
+  } else {
+    const int cb = channel_block(channels);
+    const int tile = cb * tile_pitch(out_size) * 4;
+    err = reserve_smem(roi_align3d_backward_kernel<T>, tile, scatter_bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    roi_align3d_backward_kernel<T>
+        <<<dim3(n, channels / cb, out_d), kThreads, tile, s>>>(
+            lv, r, lvl, ok, go, channels, out_size, out_d, sn);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -938,7 +1147,11 @@ extern "C" int mrcnn3d_roi_align3d(const long long* level_ptrs,
 // buffers, parts of one allocation of grad_bytes at grad, which is zeroed
 // first; dims, scales, rois, levels and valid as for mrcnn3d_roi_align3d;
 // grad_out (n, C, od, o, o) of dtype 0 = float32, 1 = bfloat16.  The
-// gradients add up in an order that varies between runs.
+// channels must be a multiple of 4 and of a scatter block's (all, or 32)
+// and a contraction block's (all, or 16) channels; each level's buffer
+// starts 16-byte aligned.  Two launches: the memset, then the scatter or
+// the contraction.  The gradients add up in an order that varies between
+// runs.
 extern "C" int mrcnn3d_roi_align3d_backward(
     const long long* level_ptrs, const int* level_dims,
     const float* level_scales, int num_levels, int dtype, int channels,
@@ -947,8 +1160,12 @@ extern "C" int mrcnn3d_roi_align3d_backward(
     int out_d, int sample_num, void* stream) {
   if (num_levels < 1 || num_levels > kMaxLevels || sample_num < 1 ||
       sample_num > kMaxSamples || out_size * sample_num > kMaxTaps ||
-      out_d < 1 || out_d > kMaxOutD || channels < 1 ||
-      channels % channel_block(channels) != 0)
+      out_d < 1 || out_d > kMaxOutD || channels < 1 || channels % 4 != 0 ||
+      channels % channel_block(channels) != 0 ||
+      channels % bwd_channel_block(channels) != 0 ||
+      channel_block(channels) * tile_pitch(out_size) * 4 > 227 * 1024 ||
+      backward_floats(bwd_channel_block(channels), out_size) * 4 >
+          227 * 1024)
     return static_cast<int>(cudaErrorInvalidValue);
   const Levels lv =
       make_levels(level_ptrs, level_dims, level_scales, num_levels);

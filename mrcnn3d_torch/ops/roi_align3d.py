@@ -25,7 +25,13 @@ When a level requires a gradient, the align goes through
 (the rois are detached boxes in every caller): the forward is the same
 K2 launch, the backward one launch of the backward kernel in the same
 source (`roi_align_3d_backward_cuda`, counted in `backward_launches`),
-or `roi_align_3d_backward_plain` on the CPU.
+or `roi_align_3d_backward_plain` on the CPU.  The backward adds into a
+zeroed float32 buffer with float atomics.  An align of few bins a roi
+(bbox geometry, 7 x 7 x 3) scatters each bin's folded taps; one of at
+least 512 (mask geometry, 14 x 14 x 10), whose bins pile up on each
+voxel, computes each roi's gradient on its window in shared memory (a
+separable contraction, a z plane at a time) and adds each voxel once.
+A bfloat16 level's gradient is then cast to its dtype.
 """
 from __future__ import annotations
 
@@ -50,6 +56,11 @@ path_rois: dict = {}
 CHANNEL_BLOCK = 32
 WINDOW_BYTES = 51 * 1024
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# channels of a backward contraction block, and the y / x voxels of the
+# window chunk it holds in shared memory (csrc/roi_align3d.cu
+# kBwdChannels, kChunk)
+_BACKWARD_CHANNELS = 16
+_BACKWARD_CHUNK = 16
 
 # bytes of float32 work space the plain version allows per roi chunk
 _PLAIN_CHUNK_BYTES = 1 << 28
@@ -232,16 +243,25 @@ def roi_align_3d_backward_plain(grad_out, level_shapes, rois, levels, valid,
             zip(torch.split(grad, sizes), level_shapes)]
 
 
+@functools.lru_cache(maxsize=64)
+def _level_geometry(dims, strides):
+    """ctypes arrays of the levels' (D, H, W) and scales, built once per
+    geometry."""
+    num_levels = len(dims) // 3
+    return ((ctypes.c_int * (3 * num_levels))(*dims),
+            (ctypes.c_float * (2 * num_levels))(
+                *[1.0 / s for s in strides]))
+
+
 def _levels_args(feats_cl, featmap_strides, featmap_strides_depth):
     """ctypes arrays of the levels: data pointers, (D, H, W), scales."""
     num_levels = len(feats_cl)
     ptrs = (ctypes.c_longlong * num_levels)(
         *[f.data_ptr() for f in feats_cl])
-    dims = (ctypes.c_int * (3 * num_levels))(
-        *[int(v) for f in feats_cl for v in f.shape[1:4]])
-    scales = (ctypes.c_float * (2 * num_levels))(
-        *[v for s, sd in zip(featmap_strides, featmap_strides_depth)
-          for v in (1.0 / s, 1.0 / sd)])
+    dims, scales = _level_geometry(
+        tuple(int(v) for f in feats_cl for v in f.shape[1:4]),
+        tuple(v for s, sd in zip(featmap_strides, featmap_strides_depth)
+              for v in (s, sd)))
     return ptrs, dims, scales, num_levels
 
 
@@ -410,8 +430,9 @@ def roi_align_3d_backward_cuda(grad_out, level_shapes, rois, levels, valid,
                                featmap_strides_depth, sample_num=2):
     """K2's backward: the same function as `roi_align_3d_backward_plain`,
     one launch (the float32 gradient buffer zeroed, then the scatter
-    kernel).  Float atomics add in an order that changes from run to run,
-    so the result varies in its last bits."""
+    kernel, or the contraction kernel where a roi has many bins: see the
+    module's docstring).  Float atomics add in an order that changes from
+    run to run, so the result varies in its last bits."""
     global backward_launches
     dev = rois.device
     dtype = grad_out.dtype
@@ -427,13 +448,18 @@ def roi_align_3d_backward_cuda(grad_out, level_shapes, rois, levels, valid,
     if tuple(grad_out.shape) != (n, c, out_size_depth, out_size, out_size):
         raise ValueError(f"grad_out {tuple(grad_out.shape)} does not match "
                          f"{n} rois of {c} channels")
-    cb = min(c, CHANNEL_BLOCK)
-    if c % cb or len(level_shapes) > 8 or not 1 <= sample_num <= 4 \
-            or out_size * sample_num > 64 or not 1 <= out_size_depth <= 32 \
-            or cb * (out_size * out_size | 1) * 4 > 200 * 1024:
-        raise ValueError("a block's channels must divide them; at most 8 "
-                         "levels, 1..4 samples per bin, out_size * "
-                         "sample_num <= 64, out_size_depth <= 32")
+    cb, cbc = min(c, CHANNEL_BLOCK), min(c, _BACKWARD_CHANNELS)
+    o, k = out_size, _BACKWARD_CHUNK
+    smem = (-(-o * o * (cbc + 1) // 4) * 4 + o * k * cbc + k * k * cbc
+            + 2 * o * k) * 4
+    if c % 4 or c % cb or c % cbc or len(level_shapes) > 8 \
+            or not 1 <= sample_num <= 4 or out_size * sample_num > 64 \
+            or not 1 <= out_size_depth <= 32 \
+            or max(smem, cb * (o * o | 1) * 4) > 227 * 1024:
+        raise ValueError("the channels must be a multiple of 4 and of a "
+                         "block's; at most 8 levels, 1..4 samples per bin, "
+                         "out_size * sample_num <= 64, out_size_depth <= "
+                         "32")
     # held in locals until the launch is queued: a temporary freed before
     # the kernel reads it could be handed to another tensor on the stream
     grad_out = grad_out.contiguous()

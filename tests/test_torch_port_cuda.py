@@ -319,6 +319,26 @@ def test_roi_align_backward_kernel_matches_plain(cuda, dtype, out, out_d):
     assert not any(bool(g.any()) for g in none)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_roi_align_backward_one_spot(cuda, dtype):
+    """150 rois on one spot, beside 150 spread ones: their windows add to
+    the same voxels at once."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    shapes = [(2, 16 >> i, 64 >> i, 64 >> i, 64) for i in range(4)]
+    rois = _rois(gen, 300, cuda)
+    rois[:150] = torch.tensor([1.0, 60.0, 70.0, 84.0, 90.0, 10.0, 14.0],
+                              device=cuda)
+    rois[:150, 1:] += torch.rand((150, 6), generator=gen, device=cuda)
+    valid = torch.ones(300, dtype=torch.bool, device=cuda)
+    levels = ra.map_roi_levels(rois, 4)
+    grad = torch.randn((300, 64, 10, 14, 14), generator=gen,
+                       device=cuda).to(dtype)
+    args = (grad, shapes, rois, levels, valid, 14, 10, STRIDES, STRIDES_D,
+            2)
+    _backward_matches(ra.roi_align_3d_backward_cuda(*args),
+                      ra.roi_align_3d_backward_plain(*args))
+
+
 @pytest.mark.parametrize("kind", ["proposals", "direct"])
 def test_roi_align_backward_main_geometry(cuda, kind):
     """At mask geometry on the 1.0x main path's levels, rois that K2's

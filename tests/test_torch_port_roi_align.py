@@ -161,6 +161,66 @@ def test_backward_plain_matches_jax_dense_vjp(seed, out, out_d):
                                    err_msg=f"level {lvl}")
 
 
+def _brute_window(roi, shape, stride, stride_d, out, out_d, sn):
+    """One roi's window on its level, tap by tap in numpy float32 (the
+    plain version's sample and edge rules): [(first, last)] voxels along
+    z, y, x, or None when an axis has no in-range tap."""
+    f32 = np.float32
+    window = []
+    for a, b, dim, scale, pooled in (
+            (5, 6, shape[1], f32(1.0 / stride_d), out_d),
+            (2, 4, shape[2], f32(1.0 / stride), out),
+            (1, 3, shape[3], f32(1.0 / stride), out)):
+        start = f32(roi[a]) * scale
+        bin_size = max(f32(f32(roi[b]) + f32(1.0)) * scale - start,
+                       f32(0.0)) / f32(pooled)
+        voxels = []
+        for p in range(pooled):
+            for i in range(sn):
+                coord = start + bin_size * (f32(p) + (f32(i) + f32(0.5))
+                                            / f32(sn))
+                if not -1.0 <= coord <= dim:
+                    continue
+                low = int(np.floor(max(coord, f32(0.0))))
+                voxels += [dim - 1] if low >= dim - 1 else [low, low + 1]
+        if not voxels:
+            return None
+        window.append((min(voxels), max(voxels)))
+    return window
+
+
+@pytest.mark.parametrize("seed,out,out_d", [(3, 7, 3), (4, 14, 10)])
+def test_backward_window_rule(seed, out, out_d):
+    """K2's backward sums a roi's gradient over its window (the first to
+    the last voxel of its in-range taps on each axis) and adds nothing
+    outside it: every voxel with a nonzero plain gradient from a roi lies
+    in that roi's window, on its level and image, and a roi with no window
+    adds nothing."""
+    feats, rois, valid, grad, levels = _backward_case(seed, out, out_d)
+    shapes = [f.shape for f in feats]
+    reached = 0
+    for r, roi in enumerate(rois[:48]):
+        grads = ra.roi_align_3d_backward_plain(
+            torch.from_numpy(grad[r:r + 1]), shapes,
+            torch.from_numpy(rois[r:r + 1]), levels[r:r + 1],
+            torch.from_numpy(valid[r:r + 1]), out, out_d, STRIDES,
+            STRIDES_D, 2)
+        lvl = int(levels[r])
+        window = _brute_window(roi, shapes[lvl], STRIDES[lvl],
+                               STRIDES_D[lvl], out, out_d, 2)
+        for gl, g in enumerate(grads):
+            hit = (g.abs().sum(-1) > 0).nonzero().tolist()
+            if not (valid[r] and window is not None and gl == lvl):
+                assert not hit, (r, gl)
+                continue
+            for b, *at in hit:
+                assert b == int(roi[0]), (r, b)
+                assert all(lo <= v <= hi for v, (lo, hi) in
+                           zip(at, window)), (r, at, window)
+            reached += bool(hit)
+    assert reached > 24
+
+
 def test_function_routes_by_grad_mode():
     """With a level that requires a gradient the align goes through
     RoIAlign3DFunction (gradient = the plain backward, in the levels'
