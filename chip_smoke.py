@@ -90,10 +90,13 @@ Phases, each printing one JSON line with its seconds:
                  of the last 20 iterations must be below the first 20's;
                  the last iteration's launches, recorded, each against its
                  plain version (as in phase 9); the trained detector's
-                 gradients on the first batch through the kernels against
-                 through the plain versions on the card, from the same
-                 draws (samples equal, losses and each parameter's
-                 gradient within 2e-3 of its largest); then the
+                 gradients on each batch of the loader's first epoch (the
+                 12 train volumes) through the kernels against through
+                 the plain versions on the card, from the same draws
+                 (samples equal, losses and each parameter's gradient
+                 within 2e-3 of its largest; the plain pass takes the
+                 kernel pass's relu branch at ties, each within 1e-4 of
+                 its call's largest input); then the
                  double_test + segm evaluation of the checkpoint (counted
                  the same way): 29 finite stats each, and the launches of
                  its last volume pair (pass 2, a 576x576x108 twin) each
@@ -104,15 +107,34 @@ Phases, each printing one JSON line with its seconds:
                  Both run the same detector, so this checks the loop's
                  file IO and host-side twin; the last served volume's
                  launches are each checked against the plain version.
+                 Timed at the config; the comparison then serves again
+                 the top 32 rows a volume at any score, so each volume
+                 has rows to compare.
+ 15. variants -- the nine 3-D two-stage variants (VARIANTS, each the
+                 flagship config by the JAX tests' recipe): each at the
+                 narrow widths on the card against the CPU (inference:
+                 valid, labels and the parcellations' arg-max equal, the
+                 rest within 2e-3; one train step as in phase 7), then at
+                 full width, bf16, budgets 2000, masks on: inference on
+                 the headline geometry (three scales: a 144x1152x1152
+                 third volume) and the train step on bench.py's (three
+                 scales: a 144x288x288 third crop), 1 warm-up and 3
+                 timed each, peak memory, the counters zeroed just
+                 before and read just after (VARIANT_LAUNCHES a step);
+                 the launches of one inference and one train step of
+                 MaskRCNN3D and MaskRCNN3D3ScalesHeads each against
+                 its plain version and timed alone, as in phases 6
+                 and 9.
 Then the kernels line, the card line and, last, the result line
 {"ok": true, "device": {...}}.  Any failure raises: the exit code is then
 not 0 and no result line is printed.
 
-    python3 chip_smoke.py --only train|learn [--port DIR]
+    python3 chip_smoke.py --only train|learn|variants [--port DIR]
 
-runs phases 1-2 and then only phases 8-9 (train) or 13-14 (learn and
-serve), and prints no result line: the way to set two versions of the
-port side by side on one card.  --port takes another checkout (an older
+runs phases 1-2 and then only phases 8-9 (train), 13-14 (learn and
+serve) or 15 (variants), and prints no result line: the way to set two
+versions of the port side by side on one card.  --port takes another
+checkout (an older
 commit unpacked with git archive) whose mrcnn3d_torch these phases then
 drive; run it from this one, in turns with --port left out.
 """
@@ -615,6 +637,33 @@ def small_config():
     return cfg
 
 
+# the 3-D two-stage types besides the flagship, the paper's ablation arms
+VARIANTS = ("RPN3D", "FasterRCNN3D", "MaskRCNN3D", "MaskRCNN3DParcel",
+            "MaskRCNN3D2ScalesHeads", "MaskRCNN3D2ScalesHeadsRefinementHead",
+            "MaskRCNN3D3ScalesHeads", "MaskRCNN3D3ScalesOnePathway",
+            "MaskRCNN3D2ScalesOnePathwayOneRPN")
+SINGLE_SCALE = ("RPN3D", "FasterRCNN3D", "MaskRCNN3D", "MaskRCNN3DParcel")
+
+
+def variant_recipe(cfg, type_name):
+    """A variant's config from the flagship's, in place, by the JAX
+    tests' recipe (tests/test_variants.py:17-37, without its narrowing):
+    the type set, rpn_head_2 dropped for single-scale types, the mask
+    (and refinement) heads dropped where the type has none."""
+    m = cfg.model
+    m["type"] = type_name
+    drop = []
+    if type_name in SINGLE_SCALE:
+        drop.append("rpn_head_2")
+    if type_name == "MaskRCNN3D2ScalesHeadsRefinementHead":
+        drop += ["mask_head", "refinement_mask_head"]
+    if type_name in ("RPN3D", "FasterRCNN3D"):
+        drop += ["mask_head", "refinement_head", "refinement_mask_head"]
+    for key in drop:
+        m.pop(key, None)
+    return cfg
+
+
 def small_inputs(seed, with_proposals):
     """numpy inputs of the small pipeline (NCDHW volumes, proposals)."""
     import numpy as np
@@ -686,31 +735,79 @@ def small_train_batch(seed, batch_size=2, max_gt=4):
     }
 
 
+# the small inputs of each scale: the flagship's two, and a 2.25x third
+VARIANT_SHAPES = SMALL_SHAPES + [(18, 72, 72)]
+PARCELLATIONS = 15
+
+
+def variant_inputs(seed, scales):
+    """numpy NCDHW volumes of the small pipeline for `scales` scales."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return {"imgs" + ("", "_2", "_3")[s]:
+            rng.randn(1, 3, *VARIANT_SHAPES[s]).astype(np.float32)
+            for s in range(scales)}
+
+
+def variant_train_batch(seed, scales, parcel):
+    """small_train_batch for `scales` scales: the third scale's volume
+    (2.25x) and gt (boxes times 2.25), and with `parcel` each gt's brain
+    region (0 to PARCELLATIONS - 1)."""
+    import numpy as np
+
+    batch = small_train_batch(seed)
+    rng = np.random.RandomState(seed + 1)
+    b = batch["imgs"].shape[0]
+    if scales == 1:
+        batch = {k: v for k, v in batch.items() if not k.endswith("_2")}
+    if scales == 3:
+        batch["imgs_3"] = rng.randn(b, 3, *VARIANT_SHAPES[2]).astype(
+            np.float32)
+        batch["gt_boxes_3"] = batch["gt_boxes"] * np.float32(2.25)
+        batch["gt_labels_3"] = batch["gt_labels"]
+        batch["gt_valid_3"] = batch["gt_valid"]
+    if parcel:
+        batch["gt_bregions"] = rng.randint(
+            0, PARCELLATIONS, batch["gt_labels"].shape).astype(np.int32)
+    return batch
+
+
 def small_run(det, batch, scale=1.0):
     """The small pipeline on `det`'s device; numpy outputs."""
     import torch
 
     tb = {k: torch.from_numpy(v).to(det.device) for k, v in batch.items()}
-    for k in ("imgs", "imgs_2"):
-        tb[k] = tb[k] * scale
+    for k in ("imgs", "imgs_2", "imgs_3"):
+        if k in tb:
+            tb[k] = tb[k] * scale
     out = det.simple_test(tb)
     return {k: v.cpu().numpy() for k, v in out.items()}
 
 
 def compare_outputs(a, b, atol, what):
-    """valid and labels equal; dets and mask logits of valid rows within
-    atol.  Returns the largest difference."""
+    """valid and labels equal; dets, mask logits and parcellation scores
+    (those the outputs hold) of valid rows within atol, and the
+    parcellations' arg-max equal.  Returns the largest difference."""
     import numpy as np
 
+    if set(a) != set(b):
+        raise AssertionError(f"{what}: outputs {sorted(a)} against "
+                             f"{sorted(b)}")
     for key in ("valid", "labels"):
         if not np.array_equal(a[key], b[key]):
             raise AssertionError(f"{what}: {key} differ")
     v = a["valid"].reshape(-1)
+    if "parcellations" in a:
+        arg = [x["parcellations"].reshape(len(v), -1)[v].argmax(-1)
+               for x in (a, b)]
+        if not np.array_equal(*arg):
+            raise AssertionError(f"{what}: parcellation arg-max differ")
     err = 0.0
-    for key, rows in (("dets", a["dets"].reshape(-1, 7)),
-                      ("mask_logits", a["mask_logits"])):
-        other = (b["dets"].reshape(-1, 7) if key == "dets"
-                 else b["mask_logits"])
+    for key in ("dets", "mask_logits", "parcellations"):
+        if key not in a:
+            continue
+        rows, other = (x[key].reshape(len(v), -1) for x in (a, b))
         e = float(np.abs(rows[v] - other[v]).max()) if v.any() else 0.0
         if not e <= atol:
             raise AssertionError(f"{what}: {key} differ by {e} > {atol}")
@@ -1040,8 +1137,9 @@ class CountedDraws:
         return self.draws(site, n, high)
 
 
-def small_train_step(device):
-    """One train step of the narrow config on `device` from seed 0's
+def small_train_step(device, cfg=None, batch=None):
+    """One train step of the narrow config (or `cfg`, on the numpy
+    `batch`) on `device` from seed 0's
     weights and CountedDraws(7): (losses, {name: (update, parameter
     after the step)}, the recorded samples, the draws' counts, the stem's
     tensors), all on the CPU.  The update is the step's learning rate
@@ -1053,10 +1151,11 @@ def small_train_step(device):
 
     from mrcnn3d_torch.entry import build_trainer
 
-    trainer = build_trainer(small_train_config(), device=device, seed=0)
+    trainer = build_trainer(cfg or small_train_config(), device=device,
+                            seed=0)
     trainer.draws = CountedDraws(7)
     batch = {k: torch.from_numpy(v).to(device)
-             for k, v in small_train_batch(3).items()}
+             for k, v in (batch or small_train_batch(3)).items()}
     backbone = trainer.model.backbone
     stem = {"pool_in": {}, "conv_grad": {}}
 
@@ -1150,8 +1249,9 @@ def compare_samples(got, want, what):
     return made_err, loss_err
 
 
-def check_small_train(device):
-    """The narrow train step on the card against the CPU: every draw's
+def check_small_train(device, cfg=None, batch=None, what="small train"):
+    """The narrow train step (or `cfg`'s on the numpy `batch`, as
+    small_train_step) on the card against the CPU: every draw's
     count, anchor target and R-CNN sample equal (float boxes and deltas
     within PIPELINE_ATOL), the losses within PIPELINE_ATOL, each
     parameter's update within PIPELINE_ATOL of the CPU update's largest
@@ -1161,9 +1261,9 @@ def check_small_train(device):
 
     import torch
 
-    gpu = small_train_step(device)
-    cpu = small_train_step("cpu")
-    made_err, loss_err = compare_samples(gpu, cpu, "small train")
+    gpu = small_train_step(device, cfg, batch)
+    cpu = small_train_step("cpu", cfg, batch)
+    made_err, loss_err = compare_samples(gpu, cpu, what)
     update_err = {}
     for name, (want, p_cpu) in cpu[1].items():
         got, p_gpu = gpu[1][name]
@@ -1171,14 +1271,14 @@ def check_small_train(device):
         tol = UPDATE_TOL.get(name, PIPELINE_ATOL) * scale
         e = float((got - want).abs().max())
         if not e <= tol:
-            raise AssertionError(f"small train: {name} update differs by "
+            raise AssertionError(f"{what}: {name} update differs by "
                                  f"{e}, largest {scale}")
         # the parameters after the step: the same, plus the float32
         # spacing of each parameter (its rounding after the update)
         spacing = (torch.nextafter(p_cpu, torch.full_like(p_cpu, math.inf))
                    - p_cpu)
         if not bool(((p_gpu - p_cpu).abs() <= tol + spacing).all()):
-            raise AssertionError(f"small train: {name} after the step "
+            raise AssertionError(f"{what}: {name} after the step "
                                  f"differs beyond its update's tolerance")
         update_err[name] = e / scale if scale else 0.0
     worst = sorted(update_err, key=update_err.get)[-3:]
@@ -1198,15 +1298,16 @@ def check_small_train(device):
 # ---------------------------------------------------------------------------
 
 
-def train_batch(gen, device):
+def train_batch(gen, device, scales=2, parcel=False):
     """bench.py's synthetic training batch (make_batch), NCDHW: per scale
-    f = 1.0, 1.5, random bf16 volumes of the crop times f; TRAIN_MAX_GT
-    valid gt boxes per image with x1 = y1 ~ U(4, 0.6 H), extent ~ U(8,
-    0.3 H), z from 2 to 14; labels 1; gt masks all ones at 1.0x.  The
-    1.5x boxes are the 1.0x boxes times 1.5, so both scales hold the same
-    objects.  That departs from bench.py on purpose: bench.py maps the
-    shared draws onto the 1.5x crop's own H before scaling by 1.5, so
-    its 1.5x boxes are not its 1.0x boxes scaled."""
+    f = 1.0, 1.5 (2.25 for a third), random bf16 volumes of the crop
+    times f; TRAIN_MAX_GT valid gt boxes per image with x1 = y1 ~ U(4,
+    0.6 H), extent ~ U(8, 0.3 H), z from 2 to 14; labels 1; gt masks all
+    ones at 1.0x; with `parcel`, brain regions ~ U{0..PARCELLATIONS-1}.
+    The 1.5x boxes are the 1.0x boxes times 1.5, so both scales hold the
+    same objects.  That departs from bench.py on purpose: bench.py maps
+    the shared draws onto the 1.5x crop's own H before scaling by 1.5,
+    so its 1.5x boxes are not its 1.0x boxes scaled."""
     import torch
 
     d, h, w = TRAIN_CROP
@@ -1216,9 +1317,9 @@ def train_batch(gen, device):
     size = 8 + torch.rand((b, g, 1), generator=gen, device=device) \
         * (h * 0.3 - 8)
     batch = {}
-    for s in range(2):
+    for s in range(scales):
         f = 1.5 ** s
-        sfx = "" if s == 0 else "_2"
+        sfx = ("", "_2", "_3")[s]
         batch["imgs" + sfx] = torch.randn(
             (b, 3, int(d * f), int(h * f), int(w * f)), generator=gen,
             device=device).to(torch.bfloat16)
@@ -1232,6 +1333,10 @@ def train_batch(gen, device):
                                               device=device)
     batch["gt_masks"] = torch.ones((b, g, d, h, w), dtype=torch.uint8,
                                    device=device)
+    if parcel:
+        batch["gt_bregions"] = torch.randint(
+            0, PARCELLATIONS, (b, g), generator=gen, device=device,
+            dtype=torch.int32)
     return batch
 
 
@@ -1495,22 +1600,24 @@ def check_backward(gen, det, device):
     return calls
 
 
-def check_train_step_kernels(captured):
+def check_train_step_kernels(captured, names=None):
     """Each launch of one train step, on the arguments it was given
     there, against its plain version and timed alone.  Each backward
-    launch takes the name of the forward launch whose rois it got."""
+    launch takes the name of the forward launch whose rois it got.
+    names: the forward launches' names (TRAIN_STEP_CALLS, the
+    flagship's, by default)."""
+    names = names or TRAIN_STEP_CALLS
     got = {k: len(v) for k, v in captured.calls.items()}
-    want = {**{k: len(v) for k, v in TRAIN_STEP_CALLS.items()},
-            "roi_align3d_backward": len(TRAIN_STEP_CALLS["roi_align3d"])}
+    want = {**{k: len(v) for k, v in names.items()},
+            "roi_align3d_backward": len(names["roi_align3d"])}
     if got != want:
         raise AssertionError(f"launches in the captured train step: {got}, "
                              f"expected {want}")
     by_rois = {args[1].data_ptr(): name for name, args in
-               zip(TRAIN_STEP_CALLS["roi_align3d"],
-                   captured.calls["roi_align3d"])}
+               zip(names["roi_align3d"], captured.calls["roi_align3d"])}
     back = [(by_rois[args[2].data_ptr()], args)
             for args in captured.calls["roi_align3d_backward"]]
-    if sorted(n for n, _ in back) != sorted(TRAIN_STEP_CALLS["roi_align3d"]):
+    if sorted(n for n, _ in back) != sorted(names["roi_align3d"]):
         raise AssertionError("K2 backward launches do not match the "
                              "forward launches one to one")
     import torch
@@ -1519,10 +1626,9 @@ def check_train_step_kernels(captured):
     with torch.no_grad():
         return {
             "nms3d": [nms_case(name, *args) for name, args in
-                      zip(TRAIN_STEP_CALLS["nms3d"],
-                          captured.calls["nms3d"])],
+                      zip(names["nms3d"], captured.calls["nms3d"])],
             "roi_align3d": [align_case(name, args) for name, args in
-                            zip(TRAIN_STEP_CALLS["roi_align3d"],
+                            zip(names["roi_align3d"],
                                 captured.calls["roi_align3d"])],
             "roi_align3d_backward": [backward_case(name, args)
                                      for name, args in back],
@@ -1894,8 +2000,8 @@ def zero_counts():
 def check_first_batch(cfg, data, device):
     """The loader's first batch on the card against the numpy sample it
     was made from (a second dataset from the same seed): every array bit
-    for bit, the volumes NCDHW in channels_last_3d storage.  Returns
-    (what was checked, the batch)."""
+    for bit, the volumes NCDHW in channels_last_3d storage.  Returns what
+    was checked."""
     import numpy as np
     import torch
 
@@ -1930,7 +2036,7 @@ def check_first_batch(cfg, data, device):
     return dict(keys=sorted(sample), bytes=sum(v.nbytes for v in
                                                sample.values()),
                 imgs=list(batch["imgs"].shape),
-                imgs_2=list(batch["imgs_2"].shape)), batch
+                imgs_2=list(batch["imgs_2"].shape))
 
 
 class PlainKernels:
@@ -1959,60 +2065,163 @@ class PlainKernels:
         return False
 
 
-def learn_gradients(state, batch, plain):
+class ReluBranches:
+    """Within the block, every `torch.relu` of the port's model records
+    its branch per unit (input > 0), in call order; given the branches
+    of another pass (`take`), each call takes those where its own
+    differ: the output is the input where the other pass's branch is
+    on, else 0 (its gradient likewise).  Such units are ties: a unit
+    whose input lies within rounding of 0 takes either branch by
+    rounding, and both are right to rounding.  Every tie's input is
+    recorded, against the largest magnitude of its call's input, so
+    that a unit which is not a tie shows."""
+
+    def __init__(self, take=None):
+        self.take = take
+
+    def __enter__(self):
+        import torch
+
+        self.branches, self.ties = [], []
+        self._relu = relu = torch.relu
+
+        def branch(x):
+            on = x > 0
+            i = len(self.branches)
+            self.branches.append(on)
+            if self.take is None:
+                return relu(x)
+            if i >= len(self.take) or self.take[i].shape != on.shape:
+                raise AssertionError("relu branches: the passes differ in "
+                                     f"their relu calls at call {i}")
+            want = self.take[i]
+            tie = want != on
+            if bool(tie.any()):
+                mag = x.detach().abs()
+                self.ties.append(dict(
+                    call=i, shape=list(x.shape), units=int(tie.sum()),
+                    max_abs_input=float(mag[tie].max()),
+                    call_max_abs_input=float(mag.max())))
+            return torch.where(want, x, torch.zeros((), dtype=x.dtype,
+                                                     device=x.device))
+
+        torch.relu = branch
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        torch.relu = self._relu
+        return False
+
+
+def learn_gradients(state, batch, plain, branches=None):
     """forward_train and its backward with the weights `state` holds, on
     `batch`, the samplers drawing from CountedDraws(LEARN_SEED); with
-    `plain`, the plain versions in place of the kernels.  Returns
-    (losses, {parameter: gradient}, the recorded samples, the draws'
-    counts), all on the CPU; the parameters' gradients are cleared."""
+    `plain`, the plain versions in place of the kernels; with
+    `branches` (a ReluBranches' record), every relu takes those branches
+    at its ties.  Returns (losses, {parameter: gradient}, the recorded
+    samples, the draws' counts, the ReluBranches of the pass), on the
+    CPU but the last; the parameters' gradients are cleared."""
     import contextlib
 
-    from mrcnn3d_torch.detectors.pipeline import forward_train
+    from mrcnn3d_torch.detectors.pipeline import forward_train, scale_shapes
 
     model = state.model
-    sets = state.anchor_sets([batch["imgs"].shape[2:],
-                              batch["imgs_2"].shape[2:]])
+    sets = state.anchor_sets(scale_shapes(model, batch))
     model.zero_grad(set_to_none=True)
     draws = CountedDraws(LEARN_SEED)
     swap = PlainKernels() if plain else contextlib.nullcontext()
-    with SampleRecorder() as rec, swap:
+    relus = ReluBranches(branches)
+    with SampleRecorder() as rec, swap, relus:
         total, losses = forward_train(model, batch, state.cfg, sets, draws)
         total.backward()
     grads = {n: p.grad.detach().cpu() for n, p in model.named_parameters()
              if p.grad is not None}
     model.zero_grad(set_to_none=True)
     return ({k: float(v.detach()) for k, v in losses.items()}, grads,
-            rec.made, draws.highs)
+            rec.made, draws.highs, relus)
 
 
-def check_learn_gradients(state, batch):
-    """The trained detector's gradients on one batch of the learning
-    run, through the kernels against through their plain versions, on
-    the card, from the same draws: every draw's count and sample equal,
-    the losses within PIPELINE_ATOL, each parameter's gradient within
-    PIPELINE_ATOL of the plain gradient's largest magnitude.  Reports the
-    largest relative error of each module."""
-    kern = learn_gradients(state, batch, plain=False)
-    plain = learn_gradients(state, batch, plain=True)
-    made_err, loss_err = compare_samples(kern, plain, "learn gradients")
-    if set(kern[1]) != set(plain[1]):
+def _grad_errors(got, want):
+    """{parameter: (largest difference, largest magnitude of want)}."""
+    if set(got) != set(want):
         raise AssertionError("learn gradients: different parameters")
-    rel = {}
-    for name, want in plain[1].items():
-        scale = float(want.abs().max())
-        e = float((kern[1][name] - want).abs().max())
-        if not e <= PIPELINE_ATOL * scale:
-            raise AssertionError(f"learn gradients: {name} differs by {e}, "
-                                 f"largest {scale}")
-        rel[name] = e / scale if scale else 0.0
-    by_module = {}
-    for name, r in rel.items():
+    return {name: (float((got[name] - w).abs().max()), float(w.abs().max()))
+            for name, w in want.items()}
+
+
+def _worst_by_module(errors):
+    out = {}
+    for name, (e, scale) in errors.items():
         mod = name.split(".")[0]
-        by_module[mod] = max(by_module.get(mod, 0.0), r)
-    return dict(losses=kern[0], max_loss_err=loss_err,
-                positives=[h for site, _, h in plain[3] if site[-1] == "pos"],
-                max_sample_float_err=made_err,
-                worst_grad_rel_err_by_module=by_module, tol=PIPELINE_ATOL)
+        out[mod] = max(out.get(mod, 0.0), e / scale if scale else 0.0)
+    return out
+
+
+# a relu unit whose branch differs between the kernel pass and the plain
+# pass is a tie when its input lies within TIE_TOL of its call's largest
+# input: K2's own float32 gate, so that the flips a K2 difference within
+# that gate can cause are ties and a larger one fails (PERF.md §6, PR 7)
+TIE_TOL = ALIGN_TOL["float32"]
+
+
+def check_relu_ties(ties, what):
+    """Every unit where the passes' relu branches differ is a tie."""
+    for tie in ties:
+        if not tie["max_abs_input"] <= TIE_TOL * tie["call_max_abs_input"]:
+            raise AssertionError(f"{what}: a relu's branches differ off a "
+                                 f"tie: {tie}")
+
+
+def check_learn_gradients(state, batches):
+    """The trained detector's gradients on each of `batches` (the
+    loader's first epoch), through the kernels against through their
+    plain versions, on the card, from the same draws.  K2's forward
+    differs from its plain version in the last bits, so a relu whose
+    input lies within rounding of 0 may take the other branch in the
+    other pass; after training the mask heads' gradients rest on few
+    rois, and one such unit can move a parameter's gradient by more than
+    PIPELINE_ATOL of its largest (PERF.md §6).  So the plain pass takes
+    the kernel pass's branch at those ties (`ReluBranches`), each of
+    which must be one (`check_relu_ties`).  Then every draw's count and
+    sample equal, the losses within PIPELINE_ATOL, and each parameter's
+    gradient within PIPELINE_ATOL of the plain gradient's largest
+    magnitude.  Reports, a batch, the ties by call and the largest
+    relative error of each module."""
+    out = []
+    for i, batch in enumerate(batches):
+        what = f"learn gradients, batch {i}"
+        kern = learn_gradients(state, batch, plain=False)
+        plain = learn_gradients(state, batch, plain=True,
+                                branches=kern[4].branches)
+        made_err, loss_err = compare_samples(kern[:4], plain[:4], what)
+        check_relu_ties(plain[4].ties, what)
+        errors = _grad_errors(kern[1], plain[1])
+        for name, (e, scale) in errors.items():
+            if not e <= PIPELINE_ATOL * scale:
+                raise AssertionError(f"{what}: {name} differs by {e}, "
+                                     f"largest {scale}")
+        out.append(dict(
+            losses=kern[0], max_loss_err=loss_err,
+            positives=[h for site, _, h in plain[3] if site[-1] == "pos"],
+            max_sample_float_err=made_err, relu_ties=plain[4].ties,
+            worst_grad_rel_err_by_module=_worst_by_module(errors)))
+    return dict(batches=out, tie_tol=TIE_TOL, tol=PIPELINE_ATOL)
+
+
+def learn_epoch(cfg, data, device):
+    """The learning run's loader's first epoch (seed LEARN_SEED), one
+    batch a train volume, on `device`."""
+    from mrcnn3d_torch.data.loader import Prefetcher
+    from mrcnn3d_torch.tools.learning_bench import train_dataset
+
+    loader = Prefetcher(train_dataset(cfg, data[1], data[2], LEARN_SEED), 1,
+                        seed=LEARN_SEED, num_workers=1, device=device)
+    try:
+        return list(loader)
+    finally:
+        loader.close()
 
 
 def run_learn(device, workdir, cfg=None, geometry=None, iters=LEARN_ITERS):
@@ -2027,10 +2236,10 @@ def run_learn(device, workdir, cfg=None, geometry=None, iters=LEARN_ITERS):
     launches of the last iteration and of the evaluation's last volume (a
     pass-2 volume pair, 576x576x108 twin) are recorded and each checked
     against its plain version, and the trained detector's gradients on
-    the first batch through the kernels against through the plain
-    versions.  Returns (the phase's record, the data, the checked
-    launches).  cfg / geometry replace the flagship and the pinned data
-    (the CPU rehearsal)."""
+    each batch of the loader's first epoch through the kernels against
+    through the plain versions.  Returns (the phase's record, the data,
+    the checked launches).  cfg / geometry replace the flagship and the
+    pinned data (the CPU rehearsal)."""
     import numpy as np
     import torch
 
@@ -2052,7 +2261,7 @@ def run_learn(device, workdir, cfg=None, geometry=None, iters=LEARN_ITERS):
         raise AssertionError(f"learn: data hash {data[0]} is not the "
                              f"pinned {pinned}")
     t = time.perf_counter()
-    out["first_batch"], batch = check_first_batch(cfg, data, device)
+    out["first_batch"] = check_first_batch(cfg, data, device)
     out["first_batch_s"] = time.perf_counter() - t
 
     dataset = lb.train_dataset(cfg, data[1], data[2], LEARN_SEED)
@@ -2095,9 +2304,10 @@ def run_learn(device, workdir, cfg=None, geometry=None, iters=LEARN_ITERS):
     t = time.perf_counter()
     calls = {"train": check_train_step_kernels(captured)}
     del captured
-    out["gradients"] = check_learn_gradients(state, batch)
+    out["gradients"] = check_learn_gradients(
+        state, learn_epoch(cfg, data, device))
     out["checks_s"] = time.perf_counter() - t
-    del state, batch
+    del state
 
     model, step = load_detector(cfg, workdir, device)
     if step != iters:
@@ -2142,56 +2352,31 @@ def run_learn(device, workdir, cfg=None, geometry=None, iters=LEARN_ITERS):
 
 
 SERVE_VOLUMES = 4
+# the comparison serves the top SERVE_MAX_DETS rows a volume at any
+# score: it then has rows whatever score 200 iterations reach (the
+# config's score_thr 0.2 left none in one run of eight)
+SERVE_MAX_DETS = 32
 
 
-def run_serve(device, workdir, data, cfg=None):
-    """apis.serve.watch with the checkpoint `learn` left over an in-dir
-    holding the val volumes (stop_after=SERVE_VOLUMES), the counters
-    zeroed just before and read just after; each volume's json against
-    run_inference's rows for it (same counts, PIPELINE_ATOL).  Both run
-    the same detector (`InferenceRunner.simple_test`), so this holds the
-    serving loop's file IO and its host-side twin against the dataset's,
-    not the detector against a reference (the JAX comparison is the CPU
-    test's); the detector's launches on this path, those of the last
-    served volume, are recorded and each checked against its plain
-    version.  Returns (the phase's record, the checked launches)."""
-    import shutil
+def serve_config(cfg):
+    """A copy of `cfg` whose rcnn stage keeps the top SERVE_MAX_DETS rows
+    a volume at any score."""
+    import copy
 
+    cfg = copy.deepcopy(cfg)
+    cfg.test_cfg["rcnn"]["score_thr"] = 0.0
+    cfg.test_cfg["rcnn"]["max_per_img"] = SERVE_MAX_DETS
+    return cfg
+
+
+def served_against(out_dir, cfg, model, ds):
+    """Each volume's json under `out_dir` against run_inference's rows
+    for it under `cfg` (same counts, PIPELINE_ATOL): (the largest
+    difference, the rows compared)."""
     import numpy as np
 
-    from mrcnn3d_torch.apis.serve import watch
-    from mrcnn3d_torch.apis.test_api import (
-        InferenceRunner,
-        load_detector,
-        run_inference,
-    )
-    from mrcnn3d_torch.tools.common import test_dataset
-    from mrcnn3d_torch.utils.config import Config
+    from mrcnn3d_torch.apis.test_api import run_inference
 
-    cfg = cfg or Config.fromfile(CONFIG)
-    ann_va, dir_va = data[3:5]
-    te = cfg.data["test"]
-    ds = test_dataset(te, ann_va, dir_va)
-    in_dir = os.path.join(workdir, "serve_in")
-    out_dir = os.path.join(workdir, "serve_out")
-    os.makedirs(in_dir)
-    for info in ds.img_infos:
-        shutil.copy(os.path.join(dir_va, info["file_name"]), in_dir)
-    model, step = load_detector(cfg, workdir, device)
-    runner = InferenceRunner(cfg, model)
-    timers = {}
-    zero_counts()
-    t = time.perf_counter()
-    names = volume_calls(cfg.test_cfg)
-    with Capture(keep=keep_last(names)) as captured:
-        watch(runner, in_dir, out_dir, te["img_norm_cfg"],
-              size_divisor=te.get("size_divisor", 32), poll_s=0.05,
-              stop_after=SERVE_VOLUMES, timers=timers)
-    wall = time.perf_counter() - t
-    launches = kernel_counts()
-    for name in ("nms3d", "roi_align3d"):
-        if not launches[name]:
-            raise AssertionError(f"serve: no {name} launch")
     results, infos = run_inference(cfg, model, ds, progress=False)[:2]
     if len(infos) != SERVE_VOLUMES or \
             len(os.listdir(out_dir)) != SERVE_VOLUMES:
@@ -2208,14 +2393,299 @@ def run_serve(device, workdir, data, cfg=None):
                                 f"serve {name} against run_inference")
         err = max(err, e)
         n += sum(len(r) for r in rows)
-    if n == 0:
+    return err, n
+
+
+def run_serve(device, workdir, data, cfg=None):
+    """apis.serve.watch with the checkpoint `learn` left over an in-dir
+    holding the val volumes (stop_after=SERVE_VOLUMES), at the config,
+    timed, the counters zeroed just before and read just after; each
+    volume's json against run_inference's rows for it (same counts,
+    PIPELINE_ATOL).  Both run the same detector (`InferenceRunner.
+    simple_test`), so this holds the serving loop's file IO and its
+    host-side twin against the dataset's, not the detector against a
+    reference (the JAX comparison is the CPU test's); the detector's
+    launches on this path, those of the last served volume, are recorded
+    and each checked against its plain version.  The config's score_thr
+    may leave a short-trained detector no row, so the volumes are then
+    served again, untimed, under `serve_config` (the top SERVE_MAX_DETS
+    rows at any score) and held against run_inference under it: that
+    comparison has rows by construction.  Returns (the phase's record,
+    the checked launches)."""
+    import shutil
+
+    from mrcnn3d_torch.apis.serve import watch
+    from mrcnn3d_torch.apis.test_api import InferenceRunner, load_detector
+    from mrcnn3d_torch.tools.common import test_dataset
+    from mrcnn3d_torch.utils.config import Config
+
+    cfg = cfg or Config.fromfile(CONFIG)
+    ann_va, dir_va = data[3:5]
+    te = cfg.data["test"]
+    ds = test_dataset(te, ann_va, dir_va)
+    in_dir = os.path.join(workdir, "serve_in")
+    os.makedirs(in_dir)
+    for info in ds.img_infos:
+        shutil.copy(os.path.join(dir_va, info["file_name"]), in_dir)
+    model, step = load_detector(cfg, workdir, device)
+
+    def serve(cfg, out_dir, timers=None):
+        watch(InferenceRunner(cfg, model), in_dir, out_dir,
+              te["img_norm_cfg"], size_divisor=te.get("size_divisor", 32),
+              poll_s=0.05, stop_after=SERVE_VOLUMES, timers=timers)
+
+    timers = {}
+    out_dir = os.path.join(workdir, "serve_out")
+    zero_counts()
+    t = time.perf_counter()
+    names = volume_calls(cfg.test_cfg)
+    with Capture(keep=keep_last(names)) as captured:
+        serve(cfg, out_dir, timers)
+    wall = time.perf_counter() - t
+    launches = kernel_counts()
+    for name in ("nms3d", "roi_align3d"):
+        if not launches[name]:
+            raise AssertionError(f"serve: no {name} launch")
+    err, n = served_against(out_dir, cfg, model, ds)
+    wide = serve_config(cfg)
+    wide_dir = os.path.join(workdir, "serve_out_top")
+    serve(wide, wide_dir)
+    wide_err, wide_n = served_against(wide_dir, wide, model, ds)
+    if wide_n == 0:
         raise AssertionError("serve: no detections, vacuous")
     calls = check_launches(captured, names, "served volume")
     return dict(volumes=SERVE_VOLUMES, checkpoint_step=step,
                 watch_s=wall, seconds_per_volume=wall / SERVE_VOLUMES,
                 volume_s=timers["volume_s"], detections=n,
-                max_abs_err=err, tol=PIPELINE_ATOL,
+                max_abs_err=max(err, wide_err), top_detections=wide_n,
+                max_dets_per_volume=SERVE_MAX_DETS, tol=PIPELINE_ATOL,
                 launches=launches), calls
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the 3-D two-stage variants
+# ---------------------------------------------------------------------------
+
+
+# launches a step, read from the pipeline (detectors/pipeline.py): (K1,
+# K2) an inference step with masks on -- one K1 per scale's proposals
+# and one for the class-wise NMS, one K2 per scale's bbox align, the
+# refinement and the mask stage; (K1, K2, K2's backward) a train step --
+# one K1 per scale's proposals, one K2 (and its backward) per scale's
+# bbox align, the refinement, the mask and the refinement mask.  RPN3D
+# makes no proposals in training (`mrcnn3d/detectors/pipeline.py:617-620`)
+VARIANT_LAUNCHES = {
+    "RPN3D": ((1, 0), (0, 0, 0)),
+    "FasterRCNN3D": ((2, 1), (1, 1, 1)),
+    "MaskRCNN3D": ((2, 2), (1, 2, 2)),
+    "MaskRCNN3DParcel": ((2, 2), (1, 2, 2)),
+    "MaskRCNN3D2ScalesHeads": ((3, 3), (2, 3, 3)),
+    "MaskRCNN3D2ScalesHeadsRefinementHead": ((3, 3), (2, 3, 3)),
+    "MaskRCNN3D3ScalesHeads": ((4, 4), (3, 4, 4)),
+    "MaskRCNN3D3ScalesOnePathway": ((4, 4), (3, 4, 4)),
+    "MaskRCNN3D2ScalesOnePathwayOneRPN": ((3, 4), (2, 5, 5)),
+}
+# a three-scale inference step's third volume: 2.25x the headline's
+VARIANT_MAIN_SHAPES = MAIN_SHAPES + [(144, 1152, 1152)]
+# the types whose full-width launches are recorded and checked alone
+VARIANT_CHECKED = ("MaskRCNN3D", "MaskRCNN3D3ScalesHeads")
+SCALE_NAMES = ("1.0x", "1.5x", "2.25x")
+
+
+def variant_calls(type_name, train):
+    """The names of one step's K1 and K2 launches of a type, in the
+    order the pipeline makes them (masks on)."""
+    from mrcnn3d_torch.detectors.build import detector_flags
+
+    f = detector_flags(variant_recipe(main_config(), type_name))
+    scales = SCALE_NAMES[:f["num_scales"]]
+    if not f["with_bbox"]:
+        return {"nms3d": [] if train else ["proposals_1.0x"],
+                "roi_align3d": []}
+    align = [f"bbox_{x}" for x in scales]
+    if f["with_refinement"]:
+        align.append("refinement_1.0x")
+    if f["with_mask"]:
+        align.append("mask_1.0x")
+        if train and f["with_refinement_mask"]:
+            align.append("mask_refinement_1.0x")
+    nms = [f"proposals_{x}" for x in scales]
+    return {"nms3d": nms if train else nms + ["classwise"],
+            "roi_align3d": align}
+
+
+def variant_per_step(type_name):
+    """VARIANT_LAUNCHES of a type as counter dicts (inference, train),
+    checked against the launches `variant_calls` reads from the code."""
+    (k1, k2), (t1, t2, tb) = VARIANT_LAUNCHES[type_name]
+    infer = {"nms3d": k1, "roi_align3d": k2}
+    train = {"nms3d": t1, "roi_align3d": t2, "roi_align3d_backward": tb}
+    for per_step, is_train in ((infer, False), (train, True)):
+        calls = variant_calls(type_name, is_train)
+        got = {k: len(v) for k, v in calls.items()}
+        if is_train:
+            got["roi_align3d_backward"] = got["roi_align3d"]
+        if got != per_step:
+            raise AssertionError(f"{type_name}: the pipeline makes {got} "
+                                 f"launches a step, the table {per_step}")
+    return infer, train
+
+
+def _check_counts(launches, per_step, steps, what):
+    for name, count in per_step.items():
+        if launches[name] != count * steps:
+            raise AssertionError(f"{what}: {name} {launches[name]} launches "
+                                 f"in {steps} steps, expected {count} a step")
+
+
+def check_small_variant(device, type_name):
+    """A variant at the narrow widths (budgets 64) on the card against
+    the CPU: its inference (valid, labels and the parcellations' arg-max
+    equal; dets, mask logits and parcellation scores within
+    PIPELINE_ATOL) and one train step as check_small_train holds it;
+    the card's launches, one step each, as VARIANT_LAUNCHES says."""
+    from mrcnn3d_torch.entry import build
+
+    infer, train = variant_per_step(type_name)
+    cfg = variant_recipe(small_config(), type_name)
+    gpu = build(cfg, device=device, budgets=SMALL_BUDGET)
+    cpu = build(cfg, device="cpu", budgets=SMALL_BUDGET)
+    scales = gpu.model.num_scales
+    batch = variant_inputs(7, scales)
+    zero_counts()
+    a = small_run(gpu, batch)
+    _check_counts(kernel_counts(), infer, 1, f"small {type_name}")
+    err = compare_outputs(a, small_run(cpu, batch), PIPELINE_ATOL,
+                          f"small {type_name}")
+    n = int(a["valid"].sum())
+    if n == 0:
+        raise AssertionError(f"small {type_name}: no detections, vacuous")
+    tb = variant_train_batch(3, scales, gpu.model.num_parcellations > 0)
+    zero_counts()
+    trained = check_small_train(
+        device, variant_recipe(small_train_config(), type_name), tb,
+        f"small train {type_name}")
+    _check_counts(kernel_counts(), train, 1, f"small train {type_name}")
+    return dict(detections=n, max_abs_err=err,
+                outputs=sorted(a), train=trained)
+
+
+def run_variant(device, type_name, steps=3, record=False):
+    """A variant at full width, bf16, every budget 2000, masks on: its
+    inference on the bench.py headline geometry (a 144x1152x1152 third
+    volume for three scales) and its train step at bench.py's training
+    geometry (batch 2, the third pathway at 2.25x); each 1 warm-up and
+    `steps` timed, the counters zeroed just before and read just after
+    the timed ones, the peak memory of each.  record: one more step of
+    each whose launches are recorded.  Returns (the record, the captured
+    inference step, the captured train step)."""
+    import numpy as np
+    import torch
+
+    from mrcnn3d_torch.entry import build, build_trainer
+    from mrcnn3d_torch.ops import roi_align3d
+
+    infer, train = variant_per_step(type_name)
+    torch.backends.cudnn.benchmark = True
+    cfg = variant_recipe(main_config(), type_name)
+    det = build(cfg, device=device, dtype=torch.bfloat16,
+                budgets=MAIN_BUDGET, seed=0)
+    model = det.model
+    gen = torch.Generator(device=device).manual_seed(11)
+    batch = {"imgs" + ("", "_2", "_3")[s]: torch.randn(
+        (1, 3, *VARIANT_MAIN_SHAPES[s]), generator=gen, device=device).to(
+            torch.bfloat16) for s in range(model.num_scales)}
+    out = {}
+
+    def timed(step, per_step, what):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        last = step()
+        torch.cuda.synchronize()
+        zero_counts()
+        roi_align3d.reset_path_counts()
+        walls = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            last = step()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        _check_counts(kernel_counts(), per_step, steps, what)
+        return last, dict(
+            step_s=walls, median_step_s=float(np.median(walls)),
+            max_memory_allocated_gib=torch.cuda.max_memory_allocated()
+            / 2**30, launches_per_step=per_step,
+            k2_rois_by_path=roi_align3d.path_counts())
+
+    res, out["inference"] = timed(lambda: det.simple_test(batch), infer,
+                                  f"{type_name} inference")
+    valid = res["valid"]
+    n_det = int(valid.sum())
+    if n_det == 0:
+        raise AssertionError(f"{type_name}: no detections at full width")
+    for key, v in res.items():
+        if key != "valid" and key != "labels" and \
+                not bool(torch.isfinite(v.float()).all()):
+            raise AssertionError(f"{type_name}: non-finite {key}")
+    out["inference"].update(detections=n_det, outputs=sorted(res),
+                            shapes={k: list(v.shape)
+                                    for k, v in res.items()})
+    captured = None
+    if record:
+        with Capture() as captured:
+            det.simple_test(batch)
+        torch.cuda.synchronize()
+    del det, batch, res
+
+    trainer = build_trainer(cfg, device=device, seed=0,
+                            compute_dtype=torch.bfloat16)
+    tb = train_batch(torch.Generator(device=device).manual_seed(17), device,
+                     model.num_scales, model.num_parcellations > 0)
+    losses, out["train"] = timed(lambda: trainer.step(tb), train,
+                                 f"{type_name} train")
+    losses = {k: float(v) for k, v in losses.items()}
+    if not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"{type_name} train: non-finite {losses}")
+    out["train"].update(losses_last=losses, batch=TRAIN_BATCH,
+                        volumes_per_s=TRAIN_BATCH
+                        / out["train"]["median_step_s"])
+    train_captured = None
+    if record:
+        with Capture(tuple(TRAIN_PER_STEP)) as train_captured:
+            trainer.step(tb)
+        torch.cuda.synchronize()
+    return out, captured, train_captured
+
+
+def run_variants(device):
+    """Phase 15: every variant's small check, card against CPU, then
+    each at full width; the launches of VARIANT_CHECKED's steps each
+    checked alone against the plain versions (as phases 6 and 9).
+    Returns (the per-type records, the checked launches by type)."""
+    import torch
+
+    records, checks = {}, {}
+    for type_name in VARIANTS:
+        t = time.perf_counter()
+        rec = {"small": check_small_variant(device, type_name)}
+        checked = type_name in VARIANT_CHECKED
+        full, cap, train_cap = run_variant(device, type_name,
+                                           record=checked)
+        rec.update(full)
+        if checked:
+            with torch.no_grad():
+                checks[type_name] = {
+                    "inference": check_launches(
+                        cap, variant_calls(type_name, False),
+                        f"{type_name} step"),
+                    "train": check_train_step_kernels(
+                        train_cap, variant_calls(type_name, True)),
+                }
+            del cap, train_cap
+        rec["seconds"] = time.perf_counter() - t
+        records[type_name] = rec
+        torch.cuda.empty_cache()
+    return records, checks
 
 
 def _per_call(calls):
@@ -2245,7 +2715,8 @@ def _path_sums(prefix, calls):
 
 def kernels_line(nms_calls, align_calls, backward_calls, step_calls,
                  main_path, train_calls, train_path, tile_calls, wholevol,
-                 learn, learn_calls, serve, serve_calls):
+                 learn, learn_calls, serve, serve_calls, variants,
+                 variant_checks):
     """The {"kernels": [...]} record.  Per kernel: launches from the
     counted run of its path (K1 and K2: the inference main path, with the
     train path's beside them as train_* and the whole volume's as
@@ -2260,8 +2731,30 @@ def kernels_line(nms_calls, align_calls, backward_calls, step_calls,
     learn_eval_launches and serve_launches; the same sums over the
     launches of the learning run's last iteration (learn_iter_*), of its
     evaluation's last volume pair (learn_eval_volume_*) and of the last
-    served volume (serve_volume_*)."""
+    served volume (serve_volume_*).  Each variant's launches a step
+    (variant_launches_per_step, from its counted full-width runs), and
+    for VARIANT_CHECKED the sums over its inference and train steps'
+    launches (<type>_step_*, <type>_train_step_*)."""
     profile = main_path["profile"] or {}
+
+    def variant_keys(name, train_only=False):
+        per_step = {t: {k: r[k]["launches_per_step"][name]
+                        for k in (("train",) if train_only
+                                  else ("inference", "train"))}
+                    for t, r in variants.items()}
+        sums = {}
+        for t, c in variant_checks.items():
+            if not train_only:
+                sums.update(_path_sums(f"{t}_step", c["inference"][name]))
+            sums.update(_path_sums(f"{t}_train_step", c["train"][name]))
+        return {"variant_launches_per_step": per_step, **sums}
+
+    def variant_errs(name, train_only=False):
+        return [c for v in variant_checks.values()
+                for part in (("train",) if train_only
+                             else ("inference", "train"))
+                for c in v[part][name]]
+
     train_profile = train_path["profile"] or {}
     wholevol_profile = wholevol["profile"] or {}
     kernels = []
@@ -2287,7 +2780,8 @@ def kernels_line(nms_calls, align_calls, backward_calls, step_calls,
             "max_abs_err": max(c["max_abs_err"]
                                for c in checked + calls + train_calls[name]
                                + tile_calls[name]
-                               + sum(paths.values(), [])),
+                               + sum(paths.values(), [])
+                               + variant_errs(name)),
             **_step_sums(calls), "library_ms": None,
             "profiled_ms_per_step":
                 profile.get("port_kernels_ms", {}).get(name),
@@ -2310,6 +2804,7 @@ def kernels_line(nms_calls, align_calls, backward_calls, step_calls,
             "serve_launches": serve["launches"][name],
             **{k: v for prefix, c in paths.items()
                for k, v in _path_sums(prefix, c).items()},
+            **variant_keys(name),
         })
     calls = train_calls["roi_align3d_backward"]
     learn_back = learn_calls["train"]["roi_align3d_backward"]
@@ -2322,7 +2817,8 @@ def kernels_line(nms_calls, align_calls, backward_calls, step_calls,
         "launches_per_step":
             train_path["launches_per_step"]["roi_align3d_backward"],
         "max_abs_err": max(c["max_abs_err"]
-                           for c in calls + learn_back + backward_calls),
+                           for c in calls + learn_back + backward_calls
+                           + variant_errs("roi_align3d_backward", True)),
         **_step_sums(calls), "library_ms": None,
         "profiled_ms_per_step":
             train_profile.get("port_kernels_ms", {}).get(
@@ -2332,6 +2828,7 @@ def kernels_line(nms_calls, align_calls, backward_calls, step_calls,
         "learn_eval_launches": learn["eval_launches"]["roi_align3d_backward"],
         "serve_launches": serve["launches"]["roi_align3d_backward"],
         **_path_sums("learn_iter", learn_back),
+        **variant_keys("roi_align3d_backward", True),
     })
     return {"kernels": kernels}
 
@@ -2349,6 +2846,15 @@ def run_train_phases(device):
     emit({"phase": "train_step_kernels", "ok": True, **train_calls,
           "seconds": time.perf_counter() - t})
     return train_path, train_calls
+
+
+def run_variants_phase(device):
+    """Phase 15: the variants, card against CPU and at full width."""
+    t = time.perf_counter()
+    variants, checks = run_variants(device)
+    emit({"phase": "variants", "ok": True, "types": variants,
+          "kernel_checks": checks, "seconds": time.perf_counter() - t})
+    return variants, checks
 
 
 def run_learn_phases(device):
@@ -2377,7 +2883,7 @@ def run_learn_phases(device):
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--only", choices=("train", "learn"),
+    p.add_argument("--only", choices=("train", "learn", "variants"),
                    help="run phases 1-2 and then only these")
     p.add_argument("--port", default=REPO,
                    help="the checkout whose mrcnn3d_torch is driven")
@@ -2416,8 +2922,12 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     device = torch.device("cuda", 0)
     if args.only:
-        {"train": run_train_phases, "learn": run_learn_phases}[args.only](
-            device)
+        if args.only == "learn":
+            run_learn_phases(device)
+        elif args.only == "variants":
+            run_variants_phase(device)
+        else:
+            run_train_phases(device)
         print(card, flush=True)
         return 0
 
@@ -2475,9 +2985,12 @@ def main(argv=None):
 
     learn, learn_calls, serve, serve_calls = run_learn_phases(device)
 
+    variants, variant_checks = run_variants_phase(device)
+
     emit(kernels_line(nms_calls, align_calls, backward_calls, step_calls,
                       main_path, train_calls, train_path, tile_calls,
-                      wholevol, learn, learn_calls, serve, serve_calls))
+                      wholevol, learn, learn_calls, serve, serve_calls,
+                      variants, variant_checks))
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

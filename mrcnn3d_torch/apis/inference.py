@@ -1,11 +1,11 @@
 """Single-volume inference API (reference mmdet/apis/inference.py).
 
-Counterpart of `mrcnn3d/apis/inference.py`: `inference_detector_3d_2scales`
-takes raw (H, W, D) volumes (.npy paths or arrays) and their 1.5x twins,
-normalises and pads them, and yields per-volume detection results;
+Counterpart of `mrcnn3d/apis/inference.py`: `inference_detector_3d`
+(single-scale detectors) and `inference_detector_3d_2scales` take raw
+(H, W, D) volumes (.npy paths or arrays), the latter with their 1.5x
+twins, normalise and pad them, and yield per-volume detection results;
 `show_result_3d` renders per-slice overlays (matplotlib, imported when
-called: without it the call raises).  The single-scale
-`inference_detector_3d` comes with the single-scale detectors.
+called: without it the call raises).
 """
 from __future__ import annotations
 
@@ -37,6 +37,19 @@ def _to_model(img, det):
     dtype = next(det.model.parameters()).dtype
     x = torch.from_numpy(img).to(det.device)
     return x.permute(3, 0, 1, 2)[None].to(dtype)
+
+
+def inference_detector_3d(det, volume_paths, norm_cfg=None):
+    """Generator over volumes (`mrcnn3d/apis/inference.py:30-38`):
+    per-class (n, 7) detection arrays for each.  det: an `entry.Flagship`
+    of a single-scale type."""
+    norm_cfg = norm_cfg or det.cfg.data["test"].get("img_norm_cfg",
+                                                    DEFAULT_NORM)
+    for path in volume_paths:
+        img, _ = _prep(path, norm_cfg)
+        dets, labels, valid, _ = det.run(_to_model(img, det))
+        yield bbox2result3d(dets[0], labels[0], valid[0],
+                            det.model.num_classes)
 
 
 def inference_detector_3d_2scales(det, volume_paths, volume_paths_2,

@@ -11,9 +11,10 @@ Two drive modes:
     `<name>.npy` volume produces `<name>.json` detections.
 
 Volumes are normalised with the config's img_norm_cfg and padded to the
-size divisor, mirroring Coco3DDataset.prepare_test; the 1.5x twin is
-synthesised with the C++ trilinear resizer exactly as the JAX package's
-serving loop does.
+size divisor, mirroring Coco3DDataset.prepare_test; for a detector of
+two scales or more the 1.5x twin is synthesised with the C++ trilinear
+resizer exactly as the JAX package's serving loop does
+(`mrcnn3d/apis/serve.py:59`).
 """
 from __future__ import annotations
 
@@ -30,19 +31,20 @@ from ..data.coco3d import _trilinear_resize
 from ..data.transforms import normalize_volume, pad_to_divisor
 
 
-def _prepare(path, norm, size_divisor, upscale):
+def _prepare(path, norm, size_divisor, two_scale, upscale):
     vol = np.load(path, allow_pickle=True)  # (H, W, D)
     img = normalize_volume(vol, norm["mean"], norm["std"])
     img, ori = pad_to_divisor(img, size_divisor)
     sample = dict(imgs=img, ori_shape=ori, path=path)
-    d, h, w, _ = img.shape
-    out = (int(d * upscale), int(h * upscale), int(w * upscale))
-    img2 = np.stack(
-        [_trilinear_resize(img[..., c], out) for c in range(3)],
-        axis=-1,
-    )
-    img2, _ = pad_to_divisor(img2, size_divisor)
-    sample["imgs_2"] = img2
+    if two_scale:
+        d, h, w, _ = img.shape
+        out = (int(d * upscale), int(h * upscale), int(w * upscale))
+        img2 = np.stack(
+            [_trilinear_resize(img[..., c], out) for c in range(3)],
+            axis=-1,
+        )
+        img2, _ = pad_to_divisor(img2, size_divisor)
+        sample["imgs_2"] = img2
     sample["img_info"] = dict(file_name=osp.basename(path))
     return sample
 
@@ -52,13 +54,14 @@ def serve_paths(runner, paths, norm, size_divisor=32, num_classes=2,
     """Yield (path, per-class results) for each volume file, with IO
     prefetch overlapping the card's compute.  runner: an
     `apis.test_api.InferenceRunner`."""
+    two_scale = runner.model.num_scales >= 2
     upscale = runner.cfg.get("upscale_factor", 1.5)
     q: queue.Queue = queue.Queue(maxsize=prefetch)
 
     def produce():
         try:
             for p in paths:
-                q.put(_prepare(p, norm, size_divisor, upscale))
+                q.put(_prepare(p, norm, size_divisor, two_scale, upscale))
         except BaseException as e:
             q.put(e)
         else:

@@ -54,8 +54,12 @@ class InferenceRunner:
         """(dets (M, 7), labels (M,), valid (M,) bool[, mask logits (V,
         Dm, Hm, Wm) of the V valid rows' predicted class, in row order])
         as numpy."""
-        out = self.det.simple_test(dict(imgs=self._tensor(sample["imgs"]),
-                                        imgs_2=self._tensor(sample["imgs_2"])))
+        batch = dict(imgs=self._tensor(sample["imgs"]))
+        if self.model.num_scales >= 2:
+            # the 1.5x twin at most, as the JAX runner feeds
+            # (`mrcnn3d/apis/test_api.py:66`)
+            batch["imgs_2"] = self._tensor(sample["imgs_2"])
+        out = self.det.simple_test(batch)
         dets, labels, valid = out["dets"][0], out["labels"][0], out["valid"][0]
         result = (dets.float().cpu().numpy(), labels.cpu().numpy(),
                   valid.cpu().numpy().astype(bool))

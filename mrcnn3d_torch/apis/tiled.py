@@ -7,9 +7,11 @@ volume coordinates and merging them with a global asymmetric-overlap
 NMS at 0.1 (SURVEY.md section 5; coco_utils.py:306-370).  Here:
 
   * the volume is uploaded once (to the card unless the detector is on
-    the CPU), cast to the model dtype and laid out (1, 3, D, H, W); its
-    1.5x twin is derived on the device (`ops.resize3d`) unless the
-    sample carries one; both are zero-padded so every tile is in bounds;
+    the CPU), cast to the model dtype and laid out (1, 3, D, H, W); for
+    a detector of two scales or more its 1.5x twin is derived on the
+    device (`ops.resize3d`) unless the sample carries one
+    (`mrcnn3d/apis/tiled.py:323, 364`); both are zero-padded so every
+    tile is in bounds;
   * each tile is a slice of the device volume, run through
     `Flagship.simple_test` (K1 and K2 on the card);
   * per tile, the top `max_dets_per_tile` detections by score are kept
@@ -111,11 +113,15 @@ def _cut(vol, origin, patch):
 
 
 def tile_step(det, t1, t2, max_dets, with_masks):
-    """One tile on the device: simple_test, the top `max_dets` valid rows
+    """One tile on the device (t2 None for a single-scale detector):
+    simple_test, the top `max_dets` valid rows
     by score (a stable sort, so the order is lax.top_k's), and the
     predicted class's mask-logit slice as bfloat16.  Returns (dets (k,
     7), labels (k,), valid (k,)[, masks (k, Dm, Hm, Wm)]) on the device."""
-    out = det.simple_test(dict(imgs=t1, imgs_2=t2))
+    batch = dict(imgs=t1)
+    if t2 is not None:
+        batch["imgs_2"] = t2
+    out = det.simple_test(batch)
     dets, labels, valid = out["dets"][0], out["labels"][0], out["valid"][0]
     top_i = None
     if max_dets is not None and max_dets < dets.shape[0]:
@@ -158,7 +164,9 @@ def tiled_inference(det, volume_sample, patch_hw=256, patch_d=None,
     """
     model, cfg, device = det.model, det.cfg, det.device
     dtype = next(model.parameters()).dtype
-    with_masks = not cfg.test_cfg.get("return_bbox_only", False)
+    with_masks = model.with_mask and not cfg.test_cfg.get(
+        "return_bbox_only", False)
+    two_scale = model.num_scales >= 2
     mask_thr = cfg.test_cfg["rcnn"].get("mask_thr_binary", 0.25)
     num_classes = model.num_classes
 
@@ -180,27 +188,31 @@ def tiled_inference(det, volume_sample, patch_hw=256, patch_d=None,
 
     t0 = time.perf_counter()
     raw = _upload(img, device)
-    raw2 = None if twin is None else _upload(twin, device)
+    raw2 = None if twin is None or not two_scale else _upload(twin, device)
     sync()
     acc("upload", t0)
     t0 = time.perf_counter()
     vol = raw.to(dtype).permute(3, 0, 1, 2)[None].contiguous()
     del raw
-    if raw2 is None:
-        vol2 = resize_trilinear_3d(vol, sweep.twin_shape)
+    if not two_scale:
+        vol2 = None
+    elif raw2 is None:
+        vol2 = _pad_to(resize_trilinear_3d(vol, sweep.twin_shape),
+                       sweep.tgt2)
     else:
-        vol2 = raw2.to(dtype).permute(3, 0, 1, 2)[None].contiguous()
+        vol2 = _pad_to(raw2.to(dtype).permute(3, 0, 1, 2)[None]
+                       .contiguous(), sweep.tgt2)
         del raw2
-    vol, vol2 = _pad_to(vol, sweep.tgt1), _pad_to(vol2, sweep.tgt2)
+    vol = _pad_to(vol, sweep.tgt1)
     sync()
     acc("derive_twin_pad", t0)
 
     entries = []
     for i, (o1, o2) in enumerate(zip(sweep.origins1, sweep.origins2)):
         t0 = time.perf_counter()
-        out = tile_step(det, _cut(vol, o1, sweep.patch1),
-                        _cut(vol2, o2, sweep.patch2), max_dets_per_tile,
-                        with_masks)
+        t2 = None if vol2 is None else _cut(vol2, o2, sweep.patch2)
+        out = tile_step(det, _cut(vol, o1, sweep.patch1), t2,
+                        max_dets_per_tile, with_masks)
         sync()
         acc("tile_device_step" if i else "first_tile", t0)
         t0 = time.perf_counter()

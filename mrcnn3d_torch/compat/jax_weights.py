@@ -101,6 +101,7 @@ def state_dict_from_jax(variables, roi_shape=(3, 7, 7)):
         conv(neck[f"fpn_{i}"], f"neck.fpn_convs.{i}.conv", True)
         i += 1
 
+    # one RPN head under one_rpn: rpn_head_0 alone -> rpn_head
     s = 0
     while f"rpn_head_{s}" in params:
         dst = "rpn_head" if s == 0 else f"rpn_head_{s + 1}"
@@ -119,7 +120,7 @@ def state_dict_from_jax(variables, roi_shape=(3, 7, 7)):
             )
             put(f"{dst}.shared_fcs.{i}.bias", fc["bias"])
             i += 1
-        for name in ("fc_cls", "fc_reg"):
+        for name in ("fc_cls", "fc_reg", "fc_parcellations"):
             if name in src:
                 put(f"{dst}.{name}.weight", _fc(src[name]["kernel"]))
                 put(f"{dst}.{name}.bias", src[name]["bias"])
@@ -133,8 +134,8 @@ def state_dict_from_jax(variables, roi_shape=(3, 7, 7)):
         put(f"{dst}.upsample.bias", src["upsample"]["bias"])
         conv(src["conv_logits"], f"{dst}.conv_logits", True)
 
-    for s in range(2):
-        suffix = "" if s == 0 else "_2"
+    for s in range(3):
+        suffix = "" if s == 0 else f"_{s + 1}"
         if f"bbox_head_{s}" in params:
             fc_head(params[f"bbox_head_{s}"], f"bbox_head{suffix}")
         if f"mask_head_{s}" in params:

@@ -1,7 +1,7 @@
 """COCO-3D datasets (.npy volumes + 6-element bboxes): the port's copy of
-`mrcnn3d/data/coco3d.py` (its single- and two-scale datasets; the parcel,
-three-scale and 2-D datasets come with their detectors, ROADMAP Queue A
-item 11).  Samples are numpy, channel-last (D, H, W, 3); the loader
+`mrcnn3d/data/coco3d.py` (its single-, two- and three-scale and parcel
+datasets; the 2-D dataset comes with its detectors, ROADMAP Queue A item
+11.8).  Samples are numpy, channel-last (D, H, W, 3); the loader
 (`data/loader.py`) turns a batch into the model's NCDHW on the card.
 
 Host-side replacements for the reference dataset stack
@@ -18,6 +18,9 @@ Host-side replacements for the reference dataset stack
     crop to the 1.5x twin, gt_bboxes_2 = gt_bboxes * factor
     (reference coco_3d_2scales.py:209-234; masks_2 disabled there too)
   * test: full padded volumes at both resolutions, filename-matched
+  * 3-scale: a 2.25x twin besides the 1.5x one (reference
+    coco_3d_3scales.py); parcel: each instance's `brain_region` as
+    gt_bregions (reference coco_3d_parcel.py:63-107)
 
 Patch-tiled evaluation sets carry `pos_top/pos_left/pos_front` offsets in
 img_info, consumed by the eval json writers (`eval/results.py`).
@@ -266,4 +269,70 @@ class Coco3D2ScalesDataset(Coco3DDataset):
         img2, ori2 = pad_to_divisor(img2, self.size_divisor)
         sample["imgs_2"] = img2
         sample["ori_shape_2"] = ori2
+        return sample
+
+
+class Coco3DParcelDataset(Coco3DDataset):
+    """COCO-3D with per-instance `brain_region` labels (reference
+    coco_3d_parcel.py:63-107): each annotation carries a 15-way brain
+    parcellation class consumed by the parcellation head."""
+
+    def _ann_arrays(self, img_id):
+        anns, boxes, labels = super()._ann_arrays(img_id)
+        bregions = np.array(
+            [a.get("brain_region", 0) for a in anns], np.int32
+        )
+        # ride along through RandomCrop3D's label filtering as a 2-column
+        # label array, split again in __getitem__
+        stacked = np.stack([labels, bregions], axis=1)
+        return anns, boxes, stacked
+
+    def __getitem__(self, idx):
+        sample = super().__getitem__(idx)
+        if not self.test_mode and sample["gt_labels"].ndim == 2:
+            stacked = sample["gt_labels"]
+            sample["gt_labels"] = stacked[:, 0]
+            sample["gt_bregions"] = stacked[:, 1]
+        return sample
+
+
+class Coco3D3ScalesDataset(Coco3D2ScalesDataset):
+    """Triple-resolution dataset (reference coco_3d_3scales.py).
+
+    Train: crop at 1.0x, synthesise the 1.5x and 2.25x (factor^2) twins
+    by trilinear upscale; gt boxes scaled accordingly.  Test: the
+    2.25x twin resized from the raw volume.
+    """
+
+    def prepare_train(self, idx):
+        sample = super().prepare_train(idx)
+        if sample is None:  # crop rejected the sample: retry idx
+            return None
+        from .. import native
+
+        up = self.upscale_factor**2
+        img = sample["imgs"]
+        d, h, w, _ = img.shape
+        img3 = native.resize_trilinear(img, int(d * up), int(h * up),
+                                       int(w * up))
+        img3, _ = pad_to_divisor(img3, self.size_divisor)
+        sample["imgs_3"] = img3
+        sample["gt_boxes_3"] = sample["gt_boxes"] * up
+        sample["gt_labels_3"] = sample["gt_labels"]
+        sample["gt_valid_3"] = sample["gt_valid"]
+        return sample
+
+    def prepare_test(self, idx):
+        sample = super().prepare_test(idx)
+        up = self.upscale_factor**2
+        vol = self.load_volume(sample["img_info"])
+        vol3 = _trilinear_resize(
+            vol, tuple(int(n * up) for n in vol.shape)
+        )
+        img3 = normalize_volume(
+            vol3, self.img_norm_cfg["mean"], self.img_norm_cfg["std"]
+        )
+        img3, ori3 = pad_to_divisor(img3, self.size_divisor)
+        sample["imgs_3"] = img3
+        sample["ori_shape_3"] = ori3
         return sample

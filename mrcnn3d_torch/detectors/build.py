@@ -1,9 +1,12 @@
 """Detector builder: reference config dict -> Detector3D module.
 
-The port builds the flagship `MaskRCNN3D2Scales` only; the config keys
-read here are the ones `mrcnn3d/detectors/build.py` reads, so narrowed
-widths (`backbone.base_width`, `neck.out_channels`, `fc_out_channels`)
-build the same shapes in both packages.
+Port of `mrcnn3d/detectors/build.py` for its 3-D two-stage rows: the
+flagship `MaskRCNN3D2Scales` and its ablation arms, which differ only in
+pathway count, head sharing and which heads exist (SURVEY.md section
+2.4), so each is a row of flags.  The config keys read here are the ones
+`mrcnn3d/detectors/build.py` reads, so narrowed widths (`backbone.base_width`,
+`neck.out_channels`, `fc_out_channels`) build the same shapes in both
+packages.
 """
 from __future__ import annotations
 
@@ -16,7 +19,69 @@ from ..models.detector import Detector3D
 from ..models.layers import FrozenBatchNorm
 from ..utils.device import resolve_device
 
-SUPPORTED = ("MaskRCNN3D2Scales",)
+# model.type -> Detector3D flags (`mrcnn3d/detectors/build.py:16-57`)
+TYPES = {
+    "RPN3D": dict(num_scales=1, with_bbox=False, with_mask=False),
+    "FasterRCNN3D": dict(num_scales=1, with_mask=False),
+    "MaskRCNN3D": dict(num_scales=1),
+    "MaskRCNN3DParcel": dict(num_scales=1),
+    "MaskRCNN3D2Scales": dict(num_scales=2, with_refinement=True),
+    "MaskRCNN3D2ScalesHeads": dict(num_scales=2, share_heads=False),
+    "MaskRCNN3D2ScalesHeadsRefinementHead": dict(
+        num_scales=2, share_heads=False, with_refinement=True,
+        with_mask=False),
+    "MaskRCNN3D3ScalesHeads": dict(num_scales=3, share_heads=False),
+    "MaskRCNN3D3ScalesOnePathway": dict(num_scales=3, share_heads=True),
+    "MaskRCNN3D2ScalesOnePathwayOneRPN": dict(
+        num_scales=2, share_heads=True, with_refinement=True, one_rpn=True),
+}
+SUPPORTED = tuple(TYPES)
+
+# the JAX package's other types, by the ROADMAP Queue A item that ports them
+NOT_PORTED = {
+    **dict.fromkeys(("RetinaNet3D",), "11.5 (RetinaNet3D)"),
+    **dict.fromkeys(("CascadeRCNN3D", "HybridTaskCascade3D"),
+                    "11.6 (Cascade and HTC)"),
+    **dict.fromkeys(("RPN", "FasterRCNN", "FastRCNN", "MaskRCNN",
+                     "RetinaNet", "CascadeRCNN", "HybridTaskCascade", "SSD",
+                     "MaskRCNNRGB", "MaskRCNNRGB2"),
+                    "11.8 (the 2-D family, SSD and RGB)"),
+}
+
+# parcellation classes when the config names none (`build.py:83-85`)
+DEFAULT_PARCELLATIONS = 15
+
+
+def detector_flags(cfg):
+    """The Detector3D flags of cfg.model's type, defaults filled in as
+    `mrcnn3d/detectors/build.py:64-78` fills them."""
+    m = cfg.model
+    kind = m["type"]
+    if kind not in TYPES:
+        where = NOT_PORTED.get(kind)
+        if where is None:
+            raise KeyError(f"unknown detector type {kind!r}")
+        raise NotImplementedError(
+            f"detector type {kind!r} is not ported yet: ROADMAP Queue A "
+            f"item {where}; the port builds {SUPPORTED}")
+    flags = dict(TYPES[kind])
+    flags.setdefault("with_bbox", True)
+    flags.setdefault("with_mask", "mask_head" in m)
+    flags.setdefault("share_heads", True)
+    flags.setdefault("with_refinement", False)
+    flags.setdefault("one_rpn", False)
+    flags["with_refinement_mask"] = (
+        flags["with_refinement"] and "refinement_mask_head" in m)
+    parcels = m.get("bbox_head", {}).get("num_parcellations", 0)
+    if kind == "MaskRCNN3DParcel" and not parcels:
+        parcels = DEFAULT_PARCELLATIONS
+    flags["num_parcellations"] = parcels
+    return flags
+
+
+def num_scales(cfg):
+    """The pathway count of cfg.model's type."""
+    return detector_flags(cfg)["num_scales"]
 
 
 def build_detector(cfg, dtype=torch.float32, device=None, seed=0,
@@ -31,35 +96,28 @@ def build_detector(cfg, dtype=torch.float32, device=None, seed=0,
     compute comes from autocast), started where the JAX package's
     `model.init` starts (`init_train_weights`); the frozen-BN statistics
     stay buffers and are never updated."""
+    flags = detector_flags(cfg)
     device = resolve_device(device)
     m = cfg.model
-    kind = m["type"]
-    if kind not in SUPPORTED:
-        raise NotImplementedError(
-            f"detector type {kind!r} is not ported yet: the port builds "
-            f"{SUPPORTED} (ROADMAP Queue A item 11 ports the variants)"
-        )
     rpn_head = m["rpn_head"]
-    bbox_roi = m["bbox_roi_extractor"]["roi_layer"]
+    bbox_head = m.get("bbox_head", {})
+    bbox_roi = m.get("bbox_roi_extractor", {}).get("roi_layer", {})
     model = Detector3D(
         depth=m["backbone"].get("depth", 50),
         base_width=m["backbone"].get("base_width", 16),
         fpn_channels=m["neck"].get("out_channels", 64),
         num_outs=m["neck"].get("num_outs", 5),
-        num_classes=m["bbox_head"].get("num_classes", 2),
+        num_classes=bbox_head.get("num_classes", 2),
         num_anchors=max(
             1,
             len(rpn_head.get("anchor_scales", [1]))
             * len(rpn_head.get("anchor_ratios", [1.0])),
         ),
-        num_scales=2,
-        share_heads=True,
-        with_refinement=True,
-        with_refinement_mask="refinement_mask_head" in m,
-        fc_out_channels=m["bbox_head"].get("fc_out_channels", 1024),
-        mask_convs=m["mask_head"].get("num_convs", 4),
+        fc_out_channels=bbox_head.get("fc_out_channels", 1024),
+        mask_convs=m.get("mask_head", {}).get("num_convs", 4),
         roi_size=bbox_roi.get("out_size", 7),
         roi_size_depth=bbox_roi.get("out_size_depth", 3),
+        **flags,
     )
     gen = torch.Generator().manual_seed(seed)
     if train:
@@ -136,5 +194,15 @@ def init_weights(model, generator):
 
 
 def anchor_cfgs(cfg):
-    """Per-scale anchor config dicts (rpn_head, rpn_head_2)."""
-    return [cfg.model["rpn_head"], cfg.model["rpn_head_2"]]
+    """Per-scale anchor config dicts (rpn_head, rpn_head_2, rpn_head_3),
+    padded to the type's scale count with the last one given: the
+    one-RPN variant configures one rpn_head for every pathway (reference
+    two_stage_3d_onepathway_onerpn.py:142-143; `build.py:144-159`)."""
+    out = [cfg.model["rpn_head"]]
+    for key in ("rpn_head_2", "rpn_head_3"):
+        if key in cfg.model:
+            out.append(cfg.model[key])
+    while len(out) < TYPES.get(cfg.model.get("type"), {}).get(
+            "num_scales", 1):
+        out.append(out[-1])
+    return out

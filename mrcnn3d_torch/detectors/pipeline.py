@@ -1,21 +1,26 @@
-"""Flagship two-scale inference and training losses (torch): proposals,
-the bbox and refinement stages, multi-class NMS, the mask stage, and
-`forward_train`.
+"""The 3-D two-stage detectors' inference and training losses (torch):
+proposals, the bbox and refinement stages, multi-class NMS, the mask
+stage, and `forward_train`.
 
-Port of the flagship branch of `mrcnn3d/detectors/pipeline.py`
+Port of the 3-D two-stage branch of `mrcnn3d/detectors/pipeline.py`
 (reference two_stage_3d_2scales.py:180-327 forward_train, :335-434
-simple_test).  Padded shapes are kept, so the outputs compare directly
-with the JAX ones: dets (B, max_per_img, 7), labels (B, max_per_img),
-valid (B, max_per_img) and mask_logits (B*max_per_img, num_classes, Dm,
-Hm, Wm).
+simple_test; rpn_3d.py for the RPN-only detector), for one, two or three
+pathways, shared or per-scale heads, with or without the refinement,
+mask and parcellation heads (`models/detector.py`).  Padded shapes are
+kept, so the outputs compare directly with the JAX ones: dets (B,
+max_per_img, 7), labels (B, max_per_img), valid (B, max_per_img),
+mask_logits (B*max_per_img, num_classes, Dm, Hm, Wm) and parcellations
+(B, max_per_img, P).
 
 Every RoIAlign goes through the K2 wrapper (`ops/roi_align3d.py`) and
-every NMS through the K1 wrapper (`ops/nms3d.py`): per inference step
-one K1 launch per scale for the proposals of all levels and images, one
-for the class-wise NMS, and four K2 launches (bbox 1.0x, bbox 1.5x,
-refinement, mask).  Per train step: two K1 launches (the proposals of
-each scale) and five K2 launches (bbox 1.0x, bbox 1.5x, refinement,
-mask, refinement mask), each with one launch of K2's backward.
+every NMS through the K1 wrapper (`ops/nms3d.py`).  Per inference step:
+one K1 launch per scale for the proposals of all levels and images and
+one for the class-wise NMS; one K2 launch per scale's bbox align, one for
+the refinement and one for the mask stage (the flagship: K1 3, K2 4).
+Per train step: one K1 launch per scale's proposals and one K2 launch
+(with one of K2's backward) per scale's bbox align, the refinement, the
+mask and the refinement mask (the flagship: K1 2, K2 5).  The RPN-only
+detector runs one K1 launch at inference and none in training.
 
 Stable sorts stand in for JAX's argsort and lax.top_k, which break ties
 toward the lower index.
@@ -203,14 +208,26 @@ def _no_mark(name):
     return None
 
 
-def simple_test(model, batch, cfg, anchor_sets, rescale=True, mark=None):
-    """Two-scale inference (reference two_stage_3d_2scales.py:335-434).
+SUFFIXES = ("", "_2", "_3")
 
-    batch: imgs (B, 3, D, H, W) and imgs_2 (the 1.5x twin); optionally
-    proposals / proposals_2 (B, M, 6) with proposals_valid{,_2} (B, M),
-    which replace the RPN.  mark: optional callable, called with a stage
-    name after each stage (the timing hook of chip_smoke.py).
-    Returns dict(dets, labels, valid[, mask_logits]) in the 1.0x frame.
+
+def scale_shapes(model, batch):
+    """The (D, H, W) input of each of the model's scales in `batch`."""
+    return [tuple(batch["imgs" + SUFFIXES[s]].shape[2:])
+            for s in range(model.num_scales)]
+
+
+def simple_test(model, batch, cfg, anchor_sets, rescale=True, mark=None):
+    """Inference (reference two_stage_3d_2scales.py:335-434 and its
+    variants; `mrcnn3d/detectors/pipeline.py` simple_test).
+
+    batch: imgs (B, 3, D, H, W) and, per further scale s, imgs_{s+1}
+    (upscale_factor ** s larger); optionally proposals{,_2,_3} (B, M, 6)
+    with proposals_valid{,_2,_3} (B, M), which replace the RPN.  mark:
+    optional callable, called with a stage name after each stage (the
+    timing hook of chip_smoke.py).  Returns dict(dets, labels, valid[,
+    mask_logits][, parcellations]) in the 1.0x frame.  Without a bbox
+    head (RPN3D) the 1.0x proposals are the detections, label 0.
     """
     mark = mark or _no_mark
     test_cfg = cfg.test_cfg
@@ -222,9 +239,27 @@ def simple_test(model, batch, cfg, anchor_sets, rescale=True, mark=None):
     stds = tuple(cfg.model["bbox_head"]["target_stds"])
     mark("start")
 
-    feats_s, boxes_s, scores_s, valid_s = [], [], [], []
+    if not model.with_bbox:
+        # RPN-only: the proposals are the detections (reference
+        # rpn_3d.py simple_test; `pipeline.py:1120-1141`)
+        imgs = batch["imgs"]
+        feats = model.extract_feat(imgs)
+        mark("backbone_fpn_0")
+        rpn_outs = model.rpn(feats, 0)
+        pboxes, pscores, pvalid = gen_proposals(
+            [o[0] for o in rpn_outs], [o[1] for o in rpn_outs],
+            anchor_sets[0], _img_shape(imgs), test_cfg["rpn"],
+            means=rpn_means, stds=rpn_stds,
+        )
+        mark("proposals_0")
+        return dict(dets=torch.cat([pboxes, pscores[..., None]], -1),
+                    labels=torch.zeros(pboxes.shape[:2], dtype=torch.long,
+                                       device=pboxes.device),
+                    valid=pvalid)
+
+    feats_s, boxes_s, scores_s, valid_s, parcel_s = [], [], [], [], []
     for s in range(model.num_scales):
-        sfx = "" if s == 0 else f"_{s + 1}"
+        sfx = SUFFIXES[s]
         imgs = batch["imgs" + sfx]
         b = imgs.shape[0]
         img_shape = _img_shape(imgs)
@@ -246,16 +281,19 @@ def simple_test(model, batch, cfg, anchor_sets, rescale=True, mark=None):
             )
         mark(f"proposals_{s}")
         rois, rvalid = flat_rois(pboxes, pvalid)
-        cls_score, bbox_pred = model.bbox_forward(
+        head_out = model.bbox_forward(
             roi_align(feats, rois, roi_cfg, rvalid), s
         )
-        scores = torch.softmax(cls_score.float(), dim=-1)
-        boxes = delta2bbox3d(rois[:, 1:], bbox_pred.float(), means, stds,
+        m = pboxes.shape[1]
+        if model.num_parcellations > 0:
+            parcel_s.append(torch.softmax(head_out[2].float(), dim=-1)
+                            .reshape(b, m, -1))
+        scores = torch.softmax(head_out[0].float(), dim=-1)
+        boxes = delta2bbox3d(rois[:, 1:], head_out[1].float(), means, stds,
                              img_shape)
         scale_factor = 1.0 if s == 0 else upscale ** s
         if rescale and scale_factor != 1.0:
             boxes = boxes / scale_factor
-        m = pboxes.shape[1]
         feats_s.append(feats)
         boxes_s.append(boxes.reshape(b, m, -1))
         scores_s.append(scores.reshape(b, m, -1))
@@ -284,7 +322,13 @@ def simple_test(model, batch, cfg, anchor_sets, rescale=True, mark=None):
     )
     mark("nms")
     out = dict(dets=dets, labels=labels, valid=dvalid)
-    if not test_cfg.get("return_bbox_only", False):
+    if parcel_s:
+        # the parcellation scores ride through NMS by source row
+        # (reference multiclass_nms_3d_parcel, bbox_nms.py:108-159)
+        parcel = torch.cat(parcel_s, 1)
+        out["parcellations"] = torch.gather(
+            parcel, 1, src_idx[..., None].expand(-1, -1, parcel.shape[2]))
+    if model.with_mask and not test_cfg.get("return_bbox_only", False):
         refined = None
         if model.with_refinement_mask and model.num_scales >= 2:
             # rows >= m1 of the NMS input came from the 1.5x pathway
@@ -436,28 +480,50 @@ def _sample_batch(draws, site, boxes, valid, gt_boxes, gt_valid, gt_labels,
     ])
 
 
+def _parcellation_loss(parcel_all, samples_s, batch, pos_weight):
+    """The brain-region branch's loss and accuracy over every scale's
+    samples (reference bbox_head_3d_parcel.py:123-126; targets
+    bbox_target.py:152-181: a positive takes its gt's region at
+    pos_weight, a negative region 0 at weight 1)."""
+    pw = 1.0 if pos_weight <= 0 else float(pos_weight)
+    regions, weights = [], []
+    for s, smp in enumerate(samples_s):
+        gt = batch.get("gt_bregions" + SUFFIXES[s], batch["gt_bregions"])
+        reg = torch.gather(gt.long(), 1, smp.gt_idx.long())
+        regions.append(torch.where(smp.is_pos, reg, 0).reshape(-1))
+        weights.append(torch.where(
+            smp.roi_valid, torch.where(smp.is_pos, pw, 1.0), 0.0
+        ).reshape(-1))
+    logits = torch.cat(parcel_all)
+    regions, weights = torch.cat(regions), torch.cat(weights)
+    avg = torch.clamp((weights > 0).sum(), min=1).float()
+    return {
+        "loss_parcellation_cls": weighted_cross_entropy(
+            logits, regions, weights, avg),
+        "acc_parcellation": accuracy(logits.float(), regions, weights > 0),
+    }
+
+
 def forward_train(model, batch, cfg, anchor_sets, draws, mark=None):
-    """The flagship's training forward (`mrcnn3d/detectors/pipeline.py`
-    forward_train, its two-scale shared-head branch): the RPN losses of
-    both scales; proposals (K1, from detached RPN outputs) sampled for
-    the shared bbox head over both scales; the refinement head on the
-    1.5x pathway's decoded class-1 boxes, detached and brought to the
-    1.0x frame; the mask and refinement mask heads on their positives.
+    """The training forward (`mrcnn3d/detectors/pipeline.py`
+    forward_train, its 3-D two-stage branch, :528-820): each scale's RPN
+    losses (suffixed _2, _3); without a bbox head, nothing more.  Else
+    proposals (K1, from detached RPN outputs) sampled per scale for the
+    bbox head(s): one loss over every scale when the head is shared,
+    one per scale (suffixed) when not; the parcellation loss; the
+    refinement head on the 1.5x pathway's decoded class-1 boxes,
+    detached and brought to the 1.0x frame; the mask head (head 0) and
+    the refinement mask head on their positives, on the 1.0x features.
 
     batch: imgs (B, 3, D, H, W), gt_boxes (B, G, 6), gt_labels (B, G),
-    gt_valid (B, G), the same with suffix _2 for the 1.5x twin, and
-    gt_masks (B, G, D, H, W) at 1.0x.  draws: the samplers' integer
-    source (`core.targets`); sites are ("rpn" | "rcnn", scale, image)
-    and ("refine", 1, image).  mark: optional callable, called with a
-    stage name after each stage.  Returns (total, loss dict): total is
-    the sum of the entries whose key contains "loss".
+    gt_valid (B, G), the same with suffix _2 (_3) for each further
+    scale, gt_masks (B, G, D, H, W) at 1.0x with a mask head and
+    gt_bregions (B, G) with a parcellation head.  draws: the samplers'
+    integer source (`core.targets`); sites are ("rpn" | "rcnn", scale,
+    image) and ("refine", 1, image).  mark: optional callable, called
+    with a stage name after each stage.  Returns (total, loss dict):
+    total is the sum of the entries whose key contains "loss".
     """
-    if not (model.num_scales == 2 and model.share_heads
-            and model.with_refinement and model.with_refinement_mask):
-        raise NotImplementedError(
-            "forward_train ports the flagship (two scales, shared heads, "
-            "refinement and refinement mask heads); the variants are "
-            "ROADMAP Queue A item 11")
     mark = mark or _no_mark
     train_cfg = cfg.train_cfg
     rcnn_cfg = train_cfg["rcnn"]
@@ -470,11 +536,12 @@ def forward_train(model, batch, cfg, anchor_sets, draws, mark=None):
 
     losses = {}
     feats_s, samples_s = [], []
-    for s in range(2):
-        sfx = "" if s == 0 else "_2"
+    for s in range(model.num_scales):
+        sfx = SUFFIXES[s]
         imgs = batch["imgs" + sfx]
         gtb, gtv = batch["gt_boxes" + sfx], batch["gt_valid" + sfx]
         feats = model.extract_feat(imgs)
+        feats_s.append(feats)
         mark(f"backbone_fpn_{s}")
         rpn_outs = model.rpn(feats, s)
         cls_outs = [o[0] for o in rpn_outs]
@@ -482,6 +549,10 @@ def forward_train(model, batch, cfg, anchor_sets, draws, mark=None):
         losses.update(rpn_loss(cls_outs, reg_outs, anchor_sets[s], gtb, gtv,
                                draws, ("rpn", s), train_cfg["rpn"], sfx,
                                rpn_means, rpn_stds))
+        if not model.with_bbox:
+            # RPN-only (reference rpn_3d.py): no proposals, no R-CNN
+            mark(f"rpn_targets_{s}")
+            continue
         with torch.no_grad():
             # proposals carry no gradient (the reference's get_bboxes
             # runs on detached outputs)
@@ -492,52 +563,75 @@ def forward_train(model, batch, cfg, anchor_sets, draws, mark=None):
         samples_s.append(_sample_batch(
             draws, ("rcnn", s), pboxes, pvalid, gtb, gtv,
             batch["gt_labels" + sfx], rcnn_cfg, means, stds))
-        feats_s.append(feats)
         mark(f"rpn_targets_{s}")
+    if not model.with_bbox:
+        return _total(losses), losses
 
-    # the shared bbox head over both scales (reference :239-257)
-    cls_all, pred_all = [], []
-    for s in range(2):
+    # the bbox head(s) over every scale (reference :239-257)
+    cls_all, pred_all, parcel_all = [], [], []
+    for s in range(model.num_scales):
         rois, rvalid = flat_rois(samples_s[s].rois, samples_s[s].roi_valid)
-        cls_score, bbox_pred = model.bbox_forward(
+        out = model.bbox_forward(
             roi_align(feats_s[s], rois, roi_cfg, rvalid), s)
-        cls_all.append(cls_score)
-        pred_all.append(bbox_pred)
-    losses.update(bbox_stage_loss(torch.cat(cls_all), torch.cat(pred_all),
-                                  cat_samples(samples_s), nc, pos_weight))
+        cls_all.append(out[0])
+        pred_all.append(out[1])
+        if model.num_parcellations > 0:
+            parcel_all.append(out[2])
+    if model.share_heads:
+        losses.update(bbox_stage_loss(
+            torch.cat(cls_all), torch.cat(pred_all), cat_samples(samples_s),
+            nc, pos_weight))
+    else:
+        for s in range(model.num_scales):
+            losses.update(bbox_stage_loss(
+                cls_all[s], pred_all[s], samples_s[s], nc, pos_weight,
+                suffix=SUFFIXES[s]))
+    if parcel_all and "gt_bregions" in batch:
+        losses.update(_parcellation_loss(parcel_all, samples_s, batch,
+                                         pos_weight))
     mark("bbox_heads")
 
-    # the refinement head (reference :259-298): the 1.5x pathway's
-    # class-1 boxes, decoded from detached deltas, in the 1.0x frame
-    imgs = batch["imgs"]
-    b, r = samples_s[1].rois.shape[:2]
-    rois2, _ = flat_rois(samples_s[1].rois, samples_s[1].roi_valid)
-    decoded = delta2bbox3d(rois2[:, 1:], pred_all[1].detach().float(), means,
-                           stds, _img_shape(batch["imgs_2"]))
-    upscale = cfg.get("upscale_factor", 1.5)
-    pred_boxes = decoded.reshape(b, r, nc * 6)[..., 6:12] / upscale
-    ref_samples = _sample_batch(
-        draws, ("refine", 1), pred_boxes, samples_s[1].roi_valid,
-        batch["gt_boxes"], batch["gt_valid"], batch["gt_labels"], rcnn_cfg,
-        means, stds)
-    rrois, rvalid = flat_rois(ref_samples.rois, ref_samples.roi_valid)
-    ref_pred = model.refinement_forward(
-        roi_align(feats_s[0], rrois, roi_cfg, rvalid))
-    avg = (ref_samples.pos_count.sum() + ref_samples.neg_count.sum()).float()
-    losses["loss_refinement_reg"] = weighted_smoothl1(
-        _class_deltas(ref_pred, ref_samples.labels.reshape(-1), nc),
-        ref_samples.bbox_targets.reshape(-1, 6),
-        ref_samples.is_pos.reshape(-1)[:, None].float(), 1.0, avg)
-    mark("refinement")
+    ref_samples = None
+    if model.with_refinement:
+        # the refinement head (reference :259-298): the 1.5x pathway's
+        # class-1 boxes, decoded from detached deltas, in the 1.0x frame
+        b, r = samples_s[1].rois.shape[:2]
+        rois2, _ = flat_rois(samples_s[1].rois, samples_s[1].roi_valid)
+        decoded = delta2bbox3d(rois2[:, 1:], pred_all[1].detach().float(),
+                               means, stds, _img_shape(batch["imgs_2"]))
+        upscale = cfg.get("upscale_factor", 1.5)
+        pred_boxes = decoded.reshape(b, r, nc * 6)[..., 6:12] / upscale
+        ref_samples = _sample_batch(
+            draws, ("refine", 1), pred_boxes, samples_s[1].roi_valid,
+            batch["gt_boxes"], batch["gt_valid"], batch["gt_labels"],
+            rcnn_cfg, means, stds)
+        rrois, rvalid = flat_rois(ref_samples.rois, ref_samples.roi_valid)
+        ref_pred = model.refinement_forward(
+            roi_align(feats_s[0], rrois, roi_cfg, rvalid))
+        avg = (ref_samples.pos_count.sum()
+               + ref_samples.neg_count.sum()).float()
+        losses["loss_refinement_reg"] = weighted_smoothl1(
+            _class_deltas(ref_pred, ref_samples.labels.reshape(-1), nc),
+            ref_samples.bbox_targets.reshape(-1, 6),
+            ref_samples.is_pos.reshape(-1)[:, None].float(), 1.0, avg)
+        mark("refinement")
 
-    # the mask heads (reference :301-327), both on the 1.0x features
-    mask_cfg = cfg.model["mask_roi_extractor"]
-    losses["loss_mask"] = _mask_branch_loss(
-        feats_s[0], samples_s[0], batch["gt_masks"], mask_cfg, rcnn_cfg,
-        model.mask_forward)
-    losses["loss_mask_refinement"] = _mask_branch_loss(
-        feats_s[0], ref_samples, batch["gt_masks"], mask_cfg, rcnn_cfg,
-        model.refinement_mask_forward)
-    mark("mask_heads")
-    total = sum(v for k, v in losses.items() if "loss" in k)
-    return total, losses
+    if model.with_mask:
+        # the mask heads (reference :301-327), on the 1.0x features; with
+        # per-scale heads the mask stage still runs head 0
+        mask_cfg = cfg.model["mask_roi_extractor"]
+        losses["loss_mask"] = _mask_branch_loss(
+            feats_s[0], samples_s[0], batch["gt_masks"], mask_cfg, rcnn_cfg,
+            model.mask_forward)
+        if model.with_refinement_mask and ref_samples is not None:
+            losses["loss_mask_refinement"] = _mask_branch_loss(
+                feats_s[0], ref_samples, batch["gt_masks"], mask_cfg,
+                rcnn_cfg, model.refinement_mask_forward)
+        mark("mask_heads")
+    return _total(losses), losses
+
+
+def _total(losses):
+    """The sum of the entries whose key contains "loss" (reference
+    apis/train.py:17-34 parse_losses)."""
+    return sum(v for k, v in losses.items() if "loss" in k)

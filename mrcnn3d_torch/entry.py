@@ -1,4 +1,5 @@
-"""Entry point: the flagship two-scale detector, ready to run.
+"""Entry point: the flagship two-scale detector, or any 3-D two-stage
+variant of it (`detectors.build.TYPES`), ready to run.
 
     from mrcnn3d_torch.entry import build
     cfg = Config.fromfile(DEFAULT_CONFIG)
@@ -6,7 +7,10 @@
     det = build(cfg, dtype=torch.bfloat16, budgets=2000)  # on the card
     dets, labels, valid, mask_logits = det.run(imgs, imgs_2)
 
-`imgs` is a (B, 3, D, H, W) volume, `imgs_2` its 1.5x twin.  The
+`imgs` is a (B, 3, D, H, W) volume, `imgs_2` its 1.5x twin (`imgs_3`
+the 2.25x one of a three-scale type; a single-scale type takes `imgs`
+alone).  `build` and `build_trainer` take a config file or a loaded
+config of any type in the table.  The
 config's `test_cfg.return_bbox_only` decides whether masks are computed
 (the flagship config asks for boxes only).  `build` runs on CUDA unless
 `device="cpu"` is passed, and raises when CUDA is missing rather than
@@ -44,7 +48,7 @@ import torch
 from .apis.tiled import tiled_inference
 from .core.targets import TorchDraws
 from .detectors.build import anchor_cfgs, build_detector
-from .detectors.pipeline import anchor_sets_for, simple_test
+from .detectors.pipeline import anchor_sets_for, scale_shapes, simple_test
 from .train.step import create_train_state, train_step
 from .utils.config import Config
 from .utils.device import resolve_device
@@ -73,10 +77,9 @@ class Flagship:
         return self._anchor_sets[key]
 
     def simple_test(self, batch, mark=None):
-        """`pipeline.simple_test` on this detector; batch as there."""
-        sets = self.anchor_sets(
-            [batch["imgs"].shape[2:], batch["imgs_2"].shape[2:]]
-        )
+        """`pipeline.simple_test` on this detector; batch as there, with
+        the imgs_* of each of the model's scales."""
+        sets = self.anchor_sets(scale_shapes(self.model, batch))
         with torch.inference_mode():
             return simple_test(self.model, batch, self.cfg, sets, mark=mark)
 
@@ -85,18 +88,21 @@ class Flagship:
         detections in volume coordinates (and their masks)."""
         return tiled_inference(self, volume_sample, **kw)
 
-    def run(self, imgs, imgs_2):
+    def run(self, imgs, imgs_2=None, imgs_3=None):
         """Returns dets (B, max_per_img, 7), labels (B, max_per_img),
         valid (B, max_per_img), mask_logits (B*max_per_img, num_classes,
-        Dm, Hm, Wm) -- None when the config asks for boxes only."""
-        out = self.simple_test(dict(imgs=imgs, imgs_2=imgs_2))
+        Dm, Hm, Wm) -- None when the config asks for boxes only or the
+        type has no mask head.  Give the volumes of the model's scales."""
+        given = dict(imgs=imgs, imgs_2=imgs_2, imgs_3=imgs_3)
+        out = self.simple_test({k: v for k, v in given.items()
+                                if v is not None})
         return (out["dets"], out["labels"], out["valid"],
                 out.get("mask_logits"))
 
 
 def build(cfg_path=DEFAULT_CONFIG, device=None, dtype=torch.float32,
           budgets=None, seed=0):
-    """Flagship detector on `device` (the card unless "cpu").
+    """The config's detector on `device` (the card unless "cpu").
 
     cfg_path: a config file, or a loaded config (copied, not changed).
     budgets: when given, nms_pre / nms_post / max_num / max_per_img.
@@ -119,8 +125,8 @@ def _load_config(cfg_path):
 
 
 class Trainer:
-    """A training build of the flagship, its train state and the
-    samplers' draws."""
+    """A training build of a detector, its train state and the samplers'
+    draws."""
 
     def __init__(self, state, draws):
         self.state = state
@@ -137,7 +143,8 @@ class Trainer:
 
 def build_trainer(cfg_path=DEFAULT_CONFIG, device=None, seed=0,
                   compute_dtype=None, iters_per_epoch=None):
-    """The flagship's trainer on `device` (the card unless "cpu").
+    """The config's trainer on `device` (the card unless "cpu");
+    cfg_path: a config file or a loaded config (copied).
 
     Weights and the samplers' draws come from `seed`; compute_dtype
     torch.bfloat16 runs the step under autocast over float32

@@ -1,11 +1,15 @@
-"""Two-scale 3-D Mask R-CNN module (NCDHW).
+"""The 3-D two-stage detector module (NCDHW).
 
-Counterpart of `mrcnn3d/models/detector.py` for the flagship flags
-(reference two_stage_3d_2scales.py:22-89): a shared backbone + FPN, one
-RPN head per scale, a bbox head and a mask head (one shared across the
-scales, or one per scale when `share_heads` is False), the refinement
-head and the refinement mask head.  Module names are the reference
-mmdet state_dict names (`rpn_head`, `rpn_head_2`, `bbox_head`, ...).
+Counterpart of `mrcnn3d/models/detector.py` for its 3-D two-stage flags:
+a shared backbone + FPN; one RPN head per scale (or one for every scale,
+`one_rpn`, reference two_stage_3d_onepathway_onerpn.py:142-143); a bbox
+head and a mask head, one shared across the scales or one per scale when
+`share_heads` is False (reference two_stage_3d_2scales_heads.py:64,82);
+the refinement head and the refinement mask head.  `with_bbox=False` is
+the RPN-only detector, `with_mask=False` the detection-only one, and
+`num_parcellations` adds the bbox head's brain-region branch.  Module
+names are the reference mmdet state_dict names (`rpn_head`,
+`rpn_head_2`, `bbox_head`, `mask_head_3`, ...).
 
 The module owns the parameters only; proposal decoding, RoIAlign, NMS
 and the stage logic live in `detectors/pipeline.py`.  Features run in
@@ -42,8 +46,12 @@ class Detector3D(nn.Module):
         num_anchors=1,
         num_scales=2,
         share_heads=True,
+        one_rpn=False,
+        with_bbox=True,
+        with_mask=True,
         with_refinement=True,
         with_refinement_mask=True,
+        num_parcellations=0,
         fc_out_channels=1024,
         mask_convs=4,
         roi_size=7,
@@ -53,25 +61,33 @@ class Detector3D(nn.Module):
         self.num_classes = num_classes
         self.num_scales = num_scales
         self.share_heads = share_heads
+        self.one_rpn = one_rpn
+        self.with_bbox = with_bbox
+        self.with_mask = with_mask
         self.with_refinement = with_refinement
         self.with_refinement_mask = with_refinement_mask
+        self.num_parcellations = num_parcellations
         self.backbone = ResNet3D(depth=depth, base_width=base_width)
         self.neck = FPN3D(self.backbone.out_channels, fpn_channels, num_outs)
-        for s in range(num_scales):
+        for s in range(1 if one_rpn else num_scales):
             setattr(self, _scale_name("rpn_head", s),
                     RPNHead3D(fpn_channels, num_anchors))
         roi_features = fpn_channels * roi_size_depth * roi_size * roi_size
         for s in range(1 if share_heads else num_scales):
-            setattr(
-                self,
-                _scale_name("bbox_head", s),
-                SharedFCBBoxHead3D(roi_features, fc_out_channels, num_classes),
-            )
-            setattr(
-                self,
-                _scale_name("mask_head", s),
-                FCNMaskHead3D(fpn_channels, num_classes, mask_convs),
-            )
+            if with_bbox:
+                setattr(
+                    self,
+                    _scale_name("bbox_head", s),
+                    SharedFCBBoxHead3D(
+                        roi_features, fc_out_channels, num_classes,
+                        num_parcellations=num_parcellations),
+                )
+            if with_mask:
+                setattr(
+                    self,
+                    _scale_name("mask_head", s),
+                    FCNMaskHead3D(fpn_channels, num_classes, mask_convs),
+                )
         if with_refinement:
             self.refinement_head = SharedFCBBoxHead3DRefinement(
                 roi_features, fc_out_channels, num_classes
@@ -90,10 +106,12 @@ class Detector3D(nn.Module):
         return self.neck(self.backbone(x))
 
     def rpn(self, feats, scale=0):
-        head = getattr(self, _scale_name("rpn_head", scale))
+        head = getattr(self, _scale_name("rpn_head",
+                                         0 if self.one_rpn else scale))
         return [head(f) for f in feats]
 
     def bbox_forward(self, roi_feats, scale=0):
+        """(cls, reg[, parcellation logits]) of scale's bbox head."""
         return self._head("bbox_head", scale)(roi_feats)
 
     def refinement_forward(self, roi_feats):

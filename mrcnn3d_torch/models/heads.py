@@ -4,7 +4,8 @@
     1x1x1 cls (A sigmoid logits) and reg (A*6) convs.
   * SharedFCBBoxHead3D -- reference convfc_bbox_head_3d.py (SharedFC):
     flatten the RoI features in C*D*H*W order, fcs + ReLU, fc_cls and
-    fc_reg (6 per class).
+    fc_reg (6 per class); with `num_parcellations`, fc_parcellations,
+    the brain-region logits (reference bbox_head_3d_parcel.py:52,72-73).
   * SharedFCBBoxHead3DRefinement -- the regression-only twin.
   * FCNMaskHead3D -- reference fcn_mask_head_3d.py:16-98: 3x3x3 convs
     (+bias +ReLU), a 2x transposed-conv upsample + ReLU, 1x1x1 per-class
@@ -31,10 +32,12 @@ class RPNHead3D(nn.Module):
 
 
 class SharedFCBBoxHead3D(nn.Module):
-    """Shared-FC bbox head; `with_cls=False` is the refinement head."""
+    """Shared-FC bbox head; `with_cls=False` is the refinement head.
+    Returns (cls, reg), or (cls, reg, parcellation logits) when
+    `num_parcellations` > 0."""
 
     def __init__(self, in_features, fc_out_channels=1024, num_classes=2,
-                 num_fcs=2, with_cls=True):
+                 num_fcs=2, with_cls=True, num_parcellations=0):
         super().__init__()
         dims = [in_features] + [fc_out_channels] * num_fcs
         self.shared_fcs = nn.ModuleList(
@@ -44,6 +47,10 @@ class SharedFCBBoxHead3D(nn.Module):
             nn.Linear(fc_out_channels, num_classes) if with_cls else None
         )
         self.fc_reg = nn.Linear(fc_out_channels, 6 * num_classes)
+        self.fc_parcellations = (
+            nn.Linear(fc_out_channels, num_parcellations)
+            if num_parcellations > 0 else None
+        )
 
     def trunk(self, x):
         x = x.flatten(1)
@@ -53,6 +60,8 @@ class SharedFCBBoxHead3D(nn.Module):
 
     def forward(self, x):
         x = self.trunk(x)
+        if self.fc_parcellations is not None:
+            return self.fc_cls(x), self.fc_reg(x), self.fc_parcellations(x)
         return self.fc_cls(x), self.fc_reg(x)
 
 

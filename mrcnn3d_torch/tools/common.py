@@ -24,12 +24,24 @@ def synthetic_root(name):
     return os.path.join(tempfile.gettempdir(), f"mrcnn3d_torch_synth_{name}")
 
 
-def test_dataset(block, ann_file, img_dir):
-    """The two-scale test-mode dataset of a config's data block (test,
-    val or the data2 twin's test)."""
-    from ..data.coco3d import Coco3D2ScalesDataset
+def train_dataset_class(cfg):
+    """The training dataset of cfg.model's type, by its scale count (the
+    JAX tools choose by it, `tools/train.py:89-96`)."""
+    from ..data import coco3d
+    from ..detectors.build import num_scales
 
-    return Coco3D2ScalesDataset(
+    return {1: coco3d.Coco3DDataset, 2: coco3d.Coco3D2ScalesDataset,
+            3: coco3d.Coco3D3ScalesDataset}[num_scales(cfg)]
+
+
+def test_dataset(block, ann_file, img_dir, scales=2):
+    """The test-mode dataset of a config's data block (test, val or the
+    data2 twin's test): single-scale for a single-scale type, else
+    two-scale (`tools/test.py:77`; the test API feeds imgs_2 at most)."""
+    from ..data.coco3d import Coco3D2ScalesDataset, Coco3DDataset
+
+    cls = Coco3DDataset if scales == 1 else Coco3D2ScalesDataset
+    return cls(
         ann_file,
         img_dir,
         img_norm_cfg=block["img_norm_cfg"],

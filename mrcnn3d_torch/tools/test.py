@@ -46,6 +46,7 @@ def main(argv=None):
     from ..apis.test_api import load_detector, run_inference
     from ..eval.coco_eval3d import CocoEval3D
     from ..eval.masks import segm_entries
+    from ..detectors.build import num_scales
     from ..eval.results import results2json3d, results2json3d_multi
     from ..utils.config import Config
 
@@ -70,7 +71,8 @@ def main(argv=None):
         )
     else:
         ann_file, img_dir = te["ann_file"], te["img_prefix"]
-    dataset = test_dataset(te, ann_file, img_dir)
+    scales = num_scales(cfg)
+    dataset = test_dataset(te, ann_file, img_dir, scales)
 
     out = run_inference(cfg, model, dataset)
     results, infos = out[0], out[1]
@@ -99,7 +101,7 @@ def main(argv=None):
                 )
             te2 = data2_cfg["test"]
             ann2, img_dir2 = te2["ann_file"], te2["img_prefix"]
-        dataset2 = test_dataset(te2, ann2, img_dir2)
+        dataset2 = test_dataset(te2, ann2, img_dir2, scales)
         cfg2 = copy.deepcopy(cfg)
         cfg2["test_cfg"] = cfg2.get("test_cfg2", cfg2["test_cfg"])
         results2, infos2 = run_inference(cfg2, model, dataset2)[:2]

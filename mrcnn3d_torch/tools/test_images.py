@@ -1,9 +1,10 @@
 """Qualitative whole-volume evaluation with per-slice overlays, on the port.
 
-Equivalent of the reference's standalone test_images.py: runs two-scale
-inference over volumes and writes per-slice PNGs with predicted boxes
-(red, scored) and ground-truth boxes (dashed green).  Rendering needs
-matplotlib (`apis.inference.show_result_3d` raises without it).
+Equivalent of the reference's standalone test_images.py: runs the
+config's detector (single- or two-scale) over volumes and writes
+per-slice PNGs with predicted boxes (red, scored) and ground-truth boxes
+(dashed green).  Rendering needs matplotlib
+(`apis.inference.show_result_3d` raises without it).
 
     python -m mrcnn3d_torch.tools.test_images \
         configs/mask_rcnn_3d_2scales.py WORK_DIR --synthetic --out-dir viz/
@@ -33,6 +34,7 @@ def main(argv=None):
 
     from ..apis.inference import show_result_3d
     from ..apis.test_api import load_detector, run_inference
+    from ..detectors.build import num_scales
     from ..utils.config import Config
 
     device = resolve(args.device)
@@ -47,7 +49,7 @@ def main(argv=None):
         )
     else:
         ann_file, img_dir = te["ann_file"], te["img_prefix"]
-    dataset = test_dataset(te, ann_file, img_dir)
+    dataset = test_dataset(te, ann_file, img_dir, num_scales(cfg))
 
     results, infos = run_inference(cfg, model, dataset)[:2]
     written = {}

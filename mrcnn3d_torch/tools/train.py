@@ -42,8 +42,9 @@ def parse_args(argv=None):
 def main(argv=None):
     args = parse_args(argv)
     from ..apis.train_api import MULTI_CARD, train_detector
-    from ..data.coco3d import Coco3D2ScalesDataset
+    from ..data.coco3d import Coco3DDataset
     from ..utils.config import Config
+    from .common import train_dataset_class
 
     if args.launcher not in ("none", None) or args.gpus > 1:
         raise SystemExit(MULTI_CARD)
@@ -73,20 +74,24 @@ def main(argv=None):
         extra_aug=tr.get("extra_aug"),
         seed=args.seed or 0,
     )
-    upscale = cfg.get("upscale_factor", 1.5)
-    dataset = Coco3D2ScalesDataset(ann_file, img_dir,
-                                   upscale_factor=upscale, **kwargs)
+    # the dataset by the type's scale count; single-scale sets take no
+    # upscale factor
+    ds_cls = train_dataset_class(cfg)
+    scale_kw = {}
+    if ds_cls is not Coco3DDataset:
+        scale_kw["upscale_factor"] = cfg.get("upscale_factor", 1.5)
+    dataset = ds_cls(ann_file, img_dir, **kwargs, **scale_kw)
 
     val_dataset = None
     if args.validate:
         if args.synthetic:
-            val_dataset = Coco3D2ScalesDataset(
-                ann_file, img_dir, test_mode=True, upscale_factor=upscale,
+            val_dataset = ds_cls(
+                ann_file, img_dir, test_mode=True, **scale_kw,
                 **{k: v for k, v in kwargs.items() if k != "extra_aug"},
             )
         else:
             v = cfg.data["val"]
-            val_dataset = Coco3D2ScalesDataset(
+            val_dataset = ds_cls(
                 v["ann_file"],
                 v["img_prefix"],
                 img_norm_cfg=v["img_norm_cfg"],
@@ -94,7 +99,7 @@ def main(argv=None):
                 with_mask=False,
                 test_mode=True,
                 max_gt=max_gt,
-                upscale_factor=upscale,
+                **scale_kw,
             )
 
     train_detector(

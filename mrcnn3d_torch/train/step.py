@@ -2,7 +2,7 @@
 one device: data parallelism and the mesh branches are ROADMAP Queue A
 item 10).
 
-A step: the flagship `forward_train` under autocast (bf16 compute over
+A step: `forward_train` under autocast (bf16 compute over
 float32 parameters when `compute_dtype` is bf16, as the JAX package's
 `dtype=bfloat16` modules with float32 params), backward, the optax
 chain's clip, then SGD.  It returns the loss dict plus "loss", the
@@ -15,7 +15,12 @@ import dataclasses
 import torch
 
 from ..detectors.build import anchor_cfgs
-from ..detectors.pipeline import _no_mark, anchor_sets_for, forward_train
+from ..detectors.pipeline import (
+    _no_mark,
+    anchor_sets_for,
+    forward_train,
+    scale_shapes,
+)
 from .optim import clip_by_global_norm_, make_optimizer, step_lr_schedule
 
 
@@ -68,8 +73,7 @@ def train_step(state, batch, draws, mark=None):
     Returns the loss
     dict plus "loss"; updates `state` in place."""
     mark = mark or _no_mark
-    sets = state.anchor_sets([batch["imgs"].shape[2:],
-                              batch["imgs_2"].shape[2:]])
+    sets = state.anchor_sets(scale_shapes(state.model, batch))
     state.optimizer.zero_grad(set_to_none=True)
     mark("start")
     dev = batch["imgs"].device
@@ -93,6 +97,12 @@ def apply_gradients(state):
     lr = state.schedule(state.step)
     for group in state.optimizer.param_groups:
         group["lr"] = lr
+        for p in group["params"]:
+            # a parameter the loss does not reach (the mask heads of
+            # scales past the first) takes a zero gradient, as in the JAX
+            # step, so that weight decay and momentum move it as optax does
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
     grad_clip = state.cfg.get("optimizer_config", {}).get("grad_clip")
     if grad_clip:
         clip_by_global_norm_(list(state.model.parameters()),

@@ -476,3 +476,71 @@ def test_path_counts_reset_after_a_launch_in_inference_mode(cuda):
     assert ra.path_counts() == {"window": 1, "direct": 0}
     ra.reset_path_counts()
     assert ra.path_counts() == {"window": 0, "direct": 0}
+
+
+# ---------------------------------------------------------------------------
+# the 3-D two-stage variants
+# ---------------------------------------------------------------------------
+
+
+VARIANTS = ("RPN3D", "FasterRCNN3D", "MaskRCNN3D", "MaskRCNN3DParcel",
+            "MaskRCNN3D2ScalesHeads", "MaskRCNN3D2ScalesHeadsRefinementHead",
+            "MaskRCNN3D3ScalesHeads", "MaskRCNN3D3ScalesOnePathway",
+            "MaskRCNN3D2ScalesOnePathwayOneRPN")
+
+
+@pytest.mark.parametrize("type_name", VARIANTS)
+def test_variant_small_card_vs_cpu(cuda, type_name):
+    """Each variant at the narrow widths, inference and a train step, on
+    the card against the CPU, with its launches a step as
+    `chip_smoke.VARIANT_LAUNCHES` says (`chip_smoke.check_small_variant`)."""
+    import chip_smoke
+
+    assert chip_smoke.VARIANTS == VARIANTS
+    result = chip_smoke.check_small_variant(cuda, type_name)
+    assert result["detections"] > 0
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_roi_align_third_pathway_2000_rois(cuda, dtype, tol):
+    """K2 at bbox geometry on the pyramid of the three-scale types' 2.25x
+    volume (144x1152x1152 at inference), 2000 proposal-like rois, both
+    paths counted as the kernel's window rule gives them."""
+    import chip_smoke
+
+    shape = (144, 1152, 1152)
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    feats = _main_levels(gen, dtype, cuda, shape)
+    boxes, _, _ = chip_smoke.proposal_boxes(gen, 2000, shape, cuda)
+    rois = torch.cat([torch.zeros_like(boxes[:, :1]), boxes], 1)
+    valid = torch.ones(2000, dtype=torch.bool, device=cuda)
+    levels = ra.map_roi_levels(rois, 4)
+    args = (feats, rois, levels, valid, 7, 3, STRIDES, STRIDES_D, 2)
+    ra.reset_path_counts()
+    got = ra.roi_align_3d_cuda(*args)
+    paths = ra.path_counts()
+    assert paths == chip_smoke.align_geometry(*args)["paths"]
+    assert paths["window"] + paths["direct"] == 2000
+    assert _align_matches(got, ra.roi_align_3d_plain(*args), tol)
+
+
+def test_roi_align_backward_third_pathway(cuda):
+    """K2's backward at bbox geometry on the three-scale train step's
+    2.25x pyramid (144x288x288, batch 2), 1024 rois in bf16."""
+    import chip_smoke
+
+    shape = (144, 288, 288)
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    shapes = [(2, shape[0] // sd, shape[1] // s, shape[2] // s, 64)
+              for s, sd in zip(STRIDES, STRIDES_D)]
+    boxes, _, _ = chip_smoke.proposal_boxes(gen, 1024, shape, cuda)
+    rois = torch.cat([(torch.arange(1024, device=cuda) % 2)[:, None]
+                      .float(), boxes], 1)
+    valid = torch.ones(1024, dtype=torch.bool, device=cuda)
+    levels = ra.map_roi_levels(rois, 4)
+    grad = torch.randn((1024, 64, 3, 7, 7), generator=gen,
+                       device=cuda).to(torch.bfloat16)
+    args = (grad, shapes, rois, levels, valid, 7, 3, STRIDES, STRIDES_D, 2)
+    _backward_matches(ra.roi_align_3d_backward_cuda(*args),
+                      ra.roi_align_3d_backward_plain(*args))

@@ -1,6 +1,8 @@
 """The port stands alone: it imports neither JAX nor the JAX package
 (its training, whole-volume, evaluation, data, API and tool modules
-included), and its entry points never fall back to the CPU on their
+included), every 3-D two-stage variant builds and takes a CPU step and
+an inference without them, the types not yet ported raise naming their
+ROADMAP item, and its entry points never fall back to the CPU on their
 own."""
 import os
 import subprocess
@@ -79,6 +81,32 @@ _SCRIPT = textwrap.dedent(
         state = train_detector(cfg, ds, work_dir=tmp, max_iters=2,
                                device="cpu", stats=stats)
         assert state.step == 2 and len(stats["losses"]) == 2
+    for kind in chip_smoke.VARIANTS:
+        vcfg = chip_smoke.variant_recipe(chip_smoke.small_train_config(),
+                                         kind)
+        vtrainer = build_trainer(vcfg, device="cpu")
+        scales = vtrainer.model.num_scales
+        vbatch = chip_smoke.variant_train_batch(
+            3, scales, vtrainer.model.num_parcellations > 0)
+        vlosses = vtrainer.step({k: torch.from_numpy(v)
+                                 for k, v in vbatch.items()})
+        assert all(bool(torch.isfinite(v)) for v in vlosses.values()), kind
+        vdet = build(chip_smoke.variant_recipe(chip_smoke.small_config(),
+                                               kind), device="cpu",
+                     budgets=16)
+        out = vdet.run(*(torch.from_numpy(v) for v in
+                         chip_smoke.variant_inputs(7, scales).values()))
+        assert out[0].shape == (1, 16, 7), kind
+    for kind, item in (("RetinaNet3D", "11.5"), ("CascadeRCNN3D", "11.6"),
+                       ("MaskRCNN", "11.8")):
+        vcfg = chip_smoke.small_config()
+        vcfg.model["type"] = kind
+        try:
+            build(vcfg, device="cpu")
+        except NotImplementedError as e:
+            assert f"item {item}" in str(e), e
+        else:
+            raise AssertionError(f"{kind} built")
     torch.cuda.is_available = lambda: False
     for entry in (build, build_trainer, lambda device: train_detector(
             cfg, ds, device=device)):
