@@ -125,18 +125,35 @@ Phases, each printing one JSON line with its seconds:
                  MaskRCNN3D and MaskRCNN3D3ScalesHeads each against
                  its plain version and timed alone, as in phases 6
                  and 9.
+ 16. families -- the single-stage and cascade families (FAMILIES:
+                 configs/retinanet_3d.py as shipped, configs/htc_3d.py
+                 with masks on, and that file as CascadeRCNN3D): each at
+                 the narrow widths (budgets 64) on the card against the
+                 CPU (inference as in phase 15, one train step as in
+                 phase 7, HTC with a gt_semantic_seg), then at full
+                 width, bf16, the config's own budgets: inference on the
+                 headline 64x512x512 volume and the train step on
+                 bench.py's training geometry (batch 2, 16 gt with
+                 masks; HTC's gt_semantic_seg made from them at full
+                 resolution), 1 warm-up and 3 timed each, peak memory,
+                 the counters zeroed just before and read just after
+                 (FAMILY_LAUNCHES a step); the launches of one
+                 RetinaNet3D inference step (its 4256-row class-wise
+                 K1), one HTC inference step and one HTC train step (the
+                 one-level semantic aligns and their backward) each
+                 against its plain version and timed alone.
 Then the kernels line, the card line and, last, the result line
 {"ok": true, "device": {...}}.  Any failure raises: the exit code is then
 not 0 and no result line is printed.
 
-    python3 chip_smoke.py --only train|learn|variants [--port DIR]
+    python3 chip_smoke.py --only train|learn|variants|families [--port DIR]
 
 runs phases 1-2 and then only phases 8-9 (train), 13-14 (learn and
-serve) or 15 (variants), and prints no result line: the way to set two
-versions of the port side by side on one card.  --port takes another
-checkout (an older
-commit unpacked with git archive) whose mrcnn3d_torch these phases then
-drive; run it from this one, in turns with --port left out.
+serve), 15 (variants) or 16 (families), and prints no result line:
+the way to set two versions of the port side by side on one card.
+--port takes another checkout (an older commit unpacked with git
+archive) whose mrcnn3d_torch these phases then drive; run it from this
+one, in turns with --port left out.
 """
 from __future__ import annotations
 
@@ -773,6 +790,68 @@ def variant_train_batch(seed, scales, parcel):
     return batch
 
 
+# the single-stage and cascade families and the config each is built from
+# (configs/htc_3d.py with model.type set for CascadeRCNN3D, whose row
+# has no mask head; the semantic keys are read only under HTC)
+FAMILIES = ("RetinaNet3D", "CascadeRCNN3D", "HybridTaskCascade3D")
+FAMILY_FILES = {"RetinaNet3D": "retinanet_3d.py",
+                "CascadeRCNN3D": "htc_3d.py",
+                "HybridTaskCascade3D": "htc_3d.py"}
+def family_config(type_name, config_cls=None):
+    """A family's full config: configs/retinanet_3d.py as shipped,
+    configs/htc_3d.py with masks on (return_bbox_only False), or that
+    file with model.type CascadeRCNN3D.  config_cls: the package's Config
+    class (the port's by default)."""
+    if config_cls is None:
+        from mrcnn3d_torch.utils.config import Config as config_cls
+    cfg = config_cls.fromfile(os.path.join(REPO, "configs",
+                                           FAMILY_FILES[type_name]))
+    cfg.model["type"] = type_name
+    if type_name != "RetinaNet3D":
+        cfg.test_cfg["return_bbox_only"] = False
+    return cfg
+
+
+def family_narrow(cfg, budget):
+    """A family config cut in place to the narrow widths (base width 4,
+    FPN 8, fcs 32; depth 50 kept) and `budget` proposals, anchors kept
+    per level and detections; each R-CNN stage samples `budget` // 2
+    rois an image."""
+    m = cfg.model
+    m["backbone"]["base_width"] = 4
+    m["neck"]["out_channels"] = 8
+    m["bbox_head"]["fc_out_channels"] = 32
+    m.pop("refinement_head", None)
+    m.pop("refinement_mask_head", None)
+    tc = cfg.test_cfg
+    tc["rpn"]["nms_pre"] = budget
+    tc["rcnn"]["max_per_img"] = budget // 2
+    if m["type"] != "RetinaNet3D":
+        for k in ("nms_post", "max_num"):
+            tc["rpn"][k] = budget
+        for k in ("nms_pre", "nms_post", "max_num"):
+            cfg.train_cfg["rpn_proposal"][k] = budget
+        for rc in cfg.train_cfg["rcnn"]:
+            rc["sampler"]["num"] = budget // 2
+    return cfg
+
+
+def family_train_batch(seed, type_name):
+    """small_train_batch on the 1.0x volume; for HTC a gt_semantic_seg at
+    full resolution (class 1 on the voxels of the gt masks, 0 elsewhere,
+    the first z slice ignored with 255), which the semantic loss resizes
+    nearest to its grid."""
+    import numpy as np
+
+    batch = variant_train_batch(seed, 1, False)
+    if type_name == "HybridTaskCascade3D":
+        masks = batch["gt_masks"] * batch["gt_valid"][..., None, None, None]
+        seg = masks.max(1).astype(np.int32)
+        seg[:, 0] = 255
+        batch["gt_semantic_seg"] = seg
+    return batch
+
+
 def small_run(det, batch, scale=1.0):
     """The small pipeline on `det`'s device; numpy outputs."""
     import torch
@@ -1088,14 +1167,15 @@ def profile_step(step, top=12):
 
 
 class SampleRecorder:
-    """Within the block, records every anchor target and R-CNN sample
-    that forward_train makes (on the CPU), by wrapping the two functions
-    in the pipeline's namespace, and the count behind every draw."""
+    """Within the block, records every anchor target (sampled, or the
+    focal head's) and R-CNN sample that forward_train makes (on the
+    CPU), by wrapping the three functions in the pipeline's namespace."""
 
     def __enter__(self):
         from mrcnn3d_torch.detectors import pipeline
 
-        self.made = {"anchor_target_single": [], "sample_rcnn_single": []}
+        self.made = {"anchor_target_single": [], "sample_rcnn_single": [],
+                     "anchor_target_focal_single": []}
         self._saved = [(name, getattr(pipeline, name)) for name in self.made]
         for name, fn in self._saved:
             setattr(pipeline, name, self._recorder(fn, self.made[name]))
@@ -1613,9 +1693,14 @@ def check_train_step_kernels(captured, names=None):
     if got != want:
         raise AssertionError(f"launches in the captured train step: {got}, "
                              f"expected {want}")
-    by_rois = {args[1].data_ptr(): name for name, args in
+    # a launch is known by its rois and its level count: HTC aligns the
+    # same rois on the FPN and on the one-level semantic map
+    by_rois = {(args[1].data_ptr(), len(args[0])): name for name, args in
                zip(names["roi_align3d"], captured.calls["roi_align3d"])}
-    back = [(by_rois[args[2].data_ptr()], args)
+    if len(by_rois) != len(names["roi_align3d"]):
+        raise AssertionError("two K2 launches of the step share their rois "
+                             "and level count")
+    back = [(by_rois[(args[2].data_ptr(), len(args[1]))], args)
             for args in captured.calls["roi_align3d_backward"]]
     if sorted(n for n, _ in back) != sorted(names["roi_align3d"]):
         raise AssertionError("K2 backward launches do not match the "
@@ -2688,6 +2773,247 @@ def run_variants(device):
     return records, checks
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the single-stage and cascade families
+# ---------------------------------------------------------------------------
+
+
+# launches a step, read from the pipeline (detectors/pipeline.py): (K1,
+# K2) an inference step -- RetinaNet3D one class-wise K1 over every
+# level's decoded rows; a cascade one K1 for the proposals and one for
+# the class-wise NMS, one K2 per stage's bbox align, HTC one more per
+# stage on the semantic map and, with masks, the mask align on the FPN
+# and on the semantic map.  (K1, K2, K2's backward) a train step --
+# RetinaNet3D makes no proposals and aligns nothing; a cascade one K1
+# for the proposals and one K2 per stage, HTC four per stage (bbox and
+# mask, each on the FPN and on the semantic map)
+FAMILY_LAUNCHES = {
+    "RetinaNet3D": ((1, 0), (0, 0, 0)),
+    "CascadeRCNN3D": ((2, 3), (1, 3, 3)),
+    "HybridTaskCascade3D": ((2, 8), (1, 12, 12)),
+}
+# the types whose full-width launches are recorded and checked alone
+# (inference: both; train: HTC, RetinaNet's train step launches nothing)
+FAMILY_CHECKED = ("RetinaNet3D", "HybridTaskCascade3D")
+
+
+def family_calls(type_name, train):
+    """The names of one step's K1 and K2 launches of a family, in the
+    order the pipeline makes them, read from its config's flags."""
+    from mrcnn3d_torch.detectors.build import detector_flags
+
+    cfg = family_config(type_name)
+    f = detector_flags(cfg)
+    if f["single_stage"]:
+        return {"nms3d": [] if train else ["classwise"], "roi_align3d": []}
+    sem = f["with_semantic"]
+    fusion = cfg.model.get("semantic_fusion", ("bbox", "mask"))
+    masks = f["with_mask"] and f["htc"]
+    align = []
+    for t in range(f["cascade_stages"]):
+        align.append(f"bbox_s{t}")
+        if sem and "bbox" in fusion:
+            align.append(f"semantic_bbox_s{t}")
+        if train and masks:
+            align.append(f"mask_s{t}")
+            if sem and "mask" in fusion:
+                align.append(f"semantic_mask_s{t}")
+    if not train and masks:
+        align.append("mask")
+        if sem and "mask" in fusion:
+            align.append("semantic_mask")
+    return {"nms3d": ["proposals"] if train else ["proposals", "classwise"],
+            "roi_align3d": align}
+
+
+def family_per_step(type_name):
+    """FAMILY_LAUNCHES of a type as counter dicts (inference, train),
+    checked against the launches `family_calls` reads from the code."""
+    (k1, k2), (t1, t2, tb) = FAMILY_LAUNCHES[type_name]
+    infer = {"nms3d": k1, "roi_align3d": k2}
+    train = {"nms3d": t1, "roi_align3d": t2, "roi_align3d_backward": tb}
+    for per_step, is_train in ((infer, False), (train, True)):
+        got = {k: len(v) for k, v in family_calls(type_name,
+                                                  is_train).items()}
+        if is_train:
+            got["roi_align3d_backward"] = got["roi_align3d"]
+        if got != per_step:
+            raise AssertionError(f"{type_name}: the pipeline makes {got} "
+                                 f"launches a step, the table {per_step}")
+    return infer, train
+
+
+def check_small_family(device, type_name):
+    """A family at the narrow widths (budgets 64) on the card against the
+    CPU: its inference (valid and labels equal; dets and mask logits
+    within PIPELINE_ATOL) and one train step as check_small_train holds
+    it; the card's launches, one step each, as FAMILY_LAUNCHES says."""
+    from mrcnn3d_torch.entry import build
+
+    infer, train = family_per_step(type_name)
+    cfg = family_narrow(family_config(type_name), SMALL_BUDGET)
+    gpu = build(cfg, device=device)
+    cpu = build(cfg, device="cpu")
+    batch = variant_inputs(7, 1)
+    zero_counts()
+    a = small_run(gpu, batch)
+    _check_counts(kernel_counts(), infer, 1, f"small {type_name}")
+    err = compare_outputs(a, small_run(cpu, batch), PIPELINE_ATOL,
+                          f"small {type_name}")
+    n = int(a["valid"].sum())
+    if n == 0:
+        raise AssertionError(f"small {type_name}: no detections, vacuous")
+    zero_counts()
+    trained = check_small_train(device, cfg, family_train_batch(3, type_name),
+                                f"small train {type_name}")
+    _check_counts(kernel_counts(), train, 1, f"small train {type_name}")
+    return dict(detections=n, max_abs_err=err, outputs=sorted(a),
+                train=trained)
+
+
+def semantic_seg(batch):
+    """HTC's gt_semantic_seg for bench.py's training batch, at full
+    resolution: class 1 on the voxels of each gt's mask inside its box,
+    0 elsewhere (the semantic loss resizes it nearest to its grid)."""
+    import torch
+
+    masks = batch["gt_masks"].bool()
+    b, g, d, h, w = masks.shape
+    dev = masks.device
+    boxes = batch["gt_boxes"]
+    z = torch.arange(d, device=dev)[:, None, None]
+    y = torch.arange(h, device=dev)[None, :, None]
+    x = torch.arange(w, device=dev)[None, None, :]
+    seg = torch.zeros((b, d, h, w), dtype=torch.int32, device=dev)
+    for i in range(b):
+        for j in range(g):
+            x1, y1, x2, y2, z1, z2 = boxes[i, j].tolist()
+            inside = ((x >= x1) & (x <= x2) & (y >= y1) & (y <= y2)
+                      & (z >= z1) & (z <= z2))
+            seg[i][inside & masks[i, j]] = 1
+    return seg
+
+
+def run_family(device, type_name, steps=3, record=False):
+    """A family at full width from its config (its own budgets, masks on
+    for HTC), bf16: inference on the headline 1.0x volume and the train
+    step on bench.py's training geometry (batch 2, 16 gt with masks; for
+    HTC a gt_semantic_seg from them), each 1 warm-up and `steps` timed,
+    the counters zeroed just before and read just after the timed ones,
+    the peak memory of each.  record: one more step of each whose
+    launches are recorded.  Returns (the record, the captured inference
+    step, the captured train step)."""
+    import numpy as np
+    import torch
+
+    from mrcnn3d_torch.entry import build, build_trainer
+    from mrcnn3d_torch.ops import roi_align3d
+
+    infer, train = family_per_step(type_name)
+    torch.backends.cudnn.benchmark = True
+    cfg = family_config(type_name)
+    det = build(cfg, device=device, dtype=torch.bfloat16, seed=0)
+    gen = torch.Generator(device=device).manual_seed(11)
+    batch = {"imgs": torch.randn((1, 3, *MAIN_SHAPES[0]), generator=gen,
+                                 device=device).to(torch.bfloat16)}
+    out = {}
+
+    def timed(step, per_step, what):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        last = step()
+        torch.cuda.synchronize()
+        zero_counts()
+        roi_align3d.reset_path_counts()
+        walls = []
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            last = step()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        _check_counts(kernel_counts(), per_step, steps, what)
+        return last, dict(
+            step_s=walls, median_step_s=float(np.median(walls)),
+            max_memory_allocated_gib=torch.cuda.max_memory_allocated()
+            / 2**30, launches_per_step=per_step,
+            k2_rois_by_path=roi_align3d.path_counts())
+
+    res, out["inference"] = timed(lambda: det.simple_test(batch), infer,
+                                  f"{type_name} inference")
+    valid = res["valid"]
+    n_det = int(valid.sum())
+    if n_det == 0:
+        raise AssertionError(f"{type_name}: no detections at full width")
+    for key, v in res.items():
+        if key not in ("valid", "labels") and \
+                not bool(torch.isfinite(v.float()).all()):
+            raise AssertionError(f"{type_name}: non-finite {key}")
+    b = cfg.test_cfg["rcnn"]["max_per_img"]
+    if tuple(res["dets"].shape) != (1, b, 7) or \
+            ("mask_logits" in res) != (type_name == "HybridTaskCascade3D"):
+        shapes = {k: tuple(v.shape) for k, v in res.items()}
+        raise AssertionError(f"{type_name}: outputs {shapes}")
+    out["inference"].update(detections=n_det, outputs=sorted(res),
+                            shapes={k: list(v.shape)
+                                    for k, v in res.items()})
+    captured = None
+    if record:
+        with Capture() as captured:
+            det.simple_test(batch)
+        torch.cuda.synchronize()
+    del det, batch, res
+
+    trainer = build_trainer(cfg, device=device, seed=0,
+                            compute_dtype=torch.bfloat16)
+    tb = train_batch(torch.Generator(device=device).manual_seed(17), device,
+                     scales=1)
+    if type_name == "HybridTaskCascade3D":
+        tb["gt_semantic_seg"] = semantic_seg(tb)
+    losses, out["train"] = timed(lambda: trainer.step(tb), train,
+                                 f"{type_name} train")
+    losses = {k: float(v) for k, v in losses.items()}
+    if not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"{type_name} train: non-finite {losses}")
+    out["train"].update(losses_last=losses, batch=TRAIN_BATCH,
+                        volumes_per_s=TRAIN_BATCH
+                        / out["train"]["median_step_s"])
+    train_captured = None
+    if record and any(train.values()):
+        with Capture(tuple(TRAIN_PER_STEP)) as train_captured:
+            trainer.step(tb)
+        torch.cuda.synchronize()
+    return out, captured, train_captured
+
+
+def run_families(device):
+    """Phase 16: each family's small check, card against CPU, then each at
+    full width; the launches of FAMILY_CHECKED's steps each checked alone
+    against the plain versions (as phases 6 and 9).  Returns (the
+    per-type records, the checked launches by type)."""
+    import torch
+
+    records, checks = {}, {}
+    for type_name in FAMILIES:
+        t = time.perf_counter()
+        rec = {"small": check_small_family(device, type_name)}
+        checked = type_name in FAMILY_CHECKED
+        full, cap, train_cap = run_family(device, type_name, record=checked)
+        rec.update(full)
+        if checked:
+            with torch.no_grad():
+                checks[type_name] = {"inference": check_launches(
+                    cap, family_calls(type_name, False),
+                    f"{type_name} step")}
+                if train_cap is not None:
+                    checks[type_name]["train"] = check_train_step_kernels(
+                        train_cap, family_calls(type_name, True))
+            del cap, train_cap
+        rec["seconds"] = time.perf_counter() - t
+        records[type_name] = rec
+        torch.cuda.empty_cache()
+    return records, checks
+
+
 def _per_call(calls):
     return [{k: c[k] for k in ("name", "valid", "ms", "device_ms",
                                "device_ms_by_kernel", "plain_ms",
@@ -2716,7 +3042,7 @@ def _path_sums(prefix, calls):
 def kernels_line(nms_calls, align_calls, backward_calls, step_calls,
                  main_path, train_calls, train_path, tile_calls, wholevol,
                  learn, learn_calls, serve, serve_calls, variants,
-                 variant_checks):
+                 variant_checks, families, family_checks):
     """The {"kernels": [...]} record.  Per kernel: launches from the
     counted run of its path (K1 and K2: the inference main path, with the
     train path's beside them as train_* and the whole volume's as
@@ -2734,25 +3060,32 @@ def kernels_line(nms_calls, align_calls, backward_calls, step_calls,
     served volume (serve_volume_*).  Each variant's launches a step
     (variant_launches_per_step, from its counted full-width runs), and
     for VARIANT_CHECKED the sums over its inference and train steps'
-    launches (<type>_step_*, <type>_train_step_*)."""
+    launches (<type>_step_*, <type>_train_step_*); the same for the
+    families (family_launches_per_step, and FAMILY_CHECKED's sums)."""
     profile = main_path["profile"] or {}
 
-    def variant_keys(name, train_only=False):
-        per_step = {t: {k: r[k]["launches_per_step"][name]
-                        for k in (("train",) if train_only
-                                  else ("inference", "train"))}
-                    for t, r in variants.items()}
+    def group_keys(prefix, records, checks, name, train_only=False):
+        parts = ("train",) if train_only else ("inference", "train")
+        per_step = {t: {k: r[k]["launches_per_step"][name] for k in parts}
+                    for t, r in records.items()}
         sums = {}
-        for t, c in variant_checks.items():
+        for t, c in checks.items():
             if not train_only:
                 sums.update(_path_sums(f"{t}_step", c["inference"][name]))
-            sums.update(_path_sums(f"{t}_train_step", c["train"][name]))
-        return {"variant_launches_per_step": per_step, **sums}
+            if "train" in c:
+                sums.update(_path_sums(f"{t}_train_step", c["train"][name]))
+        return {f"{prefix}_launches_per_step": per_step, **sums}
+
+    def variant_keys(name, train_only=False):
+        return {**group_keys("variant", variants, variant_checks, name,
+                             train_only),
+                **group_keys("family", families, family_checks, name,
+                             train_only)}
 
     def variant_errs(name, train_only=False):
-        return [c for v in variant_checks.values()
-                for part in (("train",) if train_only
-                             else ("inference", "train"))
+        parts = ("train",) if train_only else ("inference", "train")
+        return [c for checks in (variant_checks, family_checks)
+                for v in checks.values() for part in parts if part in v
                 for c in v[part][name]]
 
     train_profile = train_path["profile"] or {}
@@ -2857,6 +3190,15 @@ def run_variants_phase(device):
     return variants, checks
 
 
+def run_families_phase(device):
+    """Phase 16: the families, card against CPU and at full width."""
+    t = time.perf_counter()
+    families, checks = run_families(device)
+    emit({"phase": "families", "ok": True, "types": families,
+          "kernel_checks": checks, "seconds": time.perf_counter() - t})
+    return families, checks
+
+
 def run_learn_phases(device):
     """Phases 13-14: the learning protocol cut short, then serving its
     checkpoint, in a temporary work directory."""
@@ -2883,7 +3225,8 @@ def run_learn_phases(device):
 
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--only", choices=("train", "learn", "variants"),
+    p.add_argument("--only",
+                   choices=("train", "learn", "variants", "families"),
                    help="run phases 1-2 and then only these")
     p.add_argument("--port", default=REPO,
                    help="the checkout whose mrcnn3d_torch is driven")
@@ -2926,6 +3269,8 @@ def main(argv=None):
             run_learn_phases(device)
         elif args.only == "variants":
             run_variants_phase(device)
+        elif args.only == "families":
+            run_families_phase(device)
         else:
             run_train_phases(device)
         print(card, flush=True)
@@ -2987,10 +3332,12 @@ def main(argv=None):
 
     variants, variant_checks = run_variants_phase(device)
 
+    families, family_checks = run_families_phase(device)
+
     emit(kernels_line(nms_calls, align_calls, backward_calls, step_calls,
                       main_path, train_calls, train_path, tile_calls,
                       wholevol, learn, learn_calls, serve, serve_calls,
-                      variants, variant_checks))
+                      variants, variant_checks, families, family_checks))
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -14,6 +14,18 @@ mmdet names.  Each transform is the inverse of one in
   FrozenBatchNorm scale / bias / mean / var
                                           -> weight / bias / running_*
 
+The heads' names follow the model's kind.  The JAX package numbers its
+heads `bbox_head_{i}` / `mask_head_{i}` by scale in the two-stage types
+(port `bbox_head`, `bbox_head_2`, ...) but by stage in a cascade (port
+`bbox_head.{i}`, `mask_head.{i}` with `conv_res.conv`, mmdet v0.6.0's
+HTC names); a cascade's heads are the only class-agnostic ones (fc_reg
+of 6 outputs), which is how the two are told apart.  RetinaNet's
+`rpn_head_0` (a RetinaHead3D: cls_conv_i, reg_conv_i, retina_cls,
+retina_reg) becomes `bbox_head.cls_convs.{i}.conv`, `.reg_convs.{i}.conv`,
+`.retina_cls`, `.retina_reg`; HTC's `semantic_head` (lateral_i, conv_i,
+conv_embedding, conv_logits) `semantic_head.lateral_convs.{i}.conv`,
+`.convs.{i}.conv`, `.conv_embedding.conv`, `.conv_logits`.
+
 Every transform is a permutation, so the same function carries any tree
 shaped as the params (a gradient, optax's momentum trace) onto the
 port's names; without "batch_stats" it gives the parameters only.
@@ -101,13 +113,25 @@ def state_dict_from_jax(variables, roi_shape=(3, 7, 7)):
         conv(neck[f"fpn_{i}"], f"neck.fpn_convs.{i}.conv", True)
         i += 1
 
+    def numbered(src, prefix):
+        i = 0
+        while f"{prefix}_{i}" in src:
+            yield i, src[f"{prefix}_{i}"]
+            i += 1
+
     # one RPN head under one_rpn: rpn_head_0 alone -> rpn_head
-    s = 0
-    while f"rpn_head_{s}" in params:
+    for s, head in numbered(params, "rpn_head"):
+        if "retina_cls" in head:
+            for i, p in numbered(head, "cls_conv"):
+                conv(p, f"bbox_head.cls_convs.{i}.conv", True)
+            for i, p in numbered(head, "reg_conv"):
+                conv(p, f"bbox_head.reg_convs.{i}.conv", True)
+            for part in ("retina_cls", "retina_reg"):
+                conv(head[part], f"bbox_head.{part}", True)
+            continue
         dst = "rpn_head" if s == 0 else f"rpn_head_{s + 1}"
         for part in ("rpn_conv", "rpn_cls", "rpn_reg"):
-            conv(params[f"rpn_head_{s}"][part], f"{dst}.{part}", True)
-        s += 1
+            conv(head[part], f"{dst}.{part}", True)
 
     def fc_head(src, dst):
         i = 0
@@ -126,20 +150,36 @@ def state_dict_from_jax(variables, roi_shape=(3, 7, 7)):
                 put(f"{dst}.{name}.bias", src[name]["bias"])
 
     def mask_head(src, dst):
-        i = 0
-        while f"conv_{i}" in src:
-            conv(src[f"conv_{i}"], f"{dst}.convs.{i}.conv", True)
-            i += 1
+        for i, p in numbered(src, "conv"):
+            conv(p, f"{dst}.convs.{i}.conv", True)
         put(f"{dst}.upsample.weight", _deconv(src["upsample"]["kernel"]))
         put(f"{dst}.upsample.bias", src["upsample"]["bias"])
         conv(src["conv_logits"], f"{dst}.conv_logits", True)
+        if "conv_res" in src:
+            conv(src["conv_res"], f"{dst}.conv_res.conv", True)
 
-    for s in range(3):
-        suffix = "" if s == 0 else f"_{s + 1}"
-        if f"bbox_head_{s}" in params:
-            fc_head(params[f"bbox_head_{s}"], f"bbox_head{suffix}")
-        if f"mask_head_{s}" in params:
-            mask_head(params[f"mask_head_{s}"], f"mask_head{suffix}")
+    cascade = ("bbox_head_0" in params
+               and np.shape(params["bbox_head_0"]["fc_reg"]["kernel"])[-1]
+               == 6)
+
+    def head_name(base, s):
+        if cascade:
+            return f"{base}.{s}"
+        return base if s == 0 else f"{base}_{s + 1}"
+
+    for s, head in numbered(params, "bbox_head"):
+        fc_head(head, head_name("bbox_head", s))
+    for s, head in numbered(params, "mask_head"):
+        mask_head(head, head_name("mask_head", s))
+    if "semantic_head" in params:
+        src = params["semantic_head"]
+        for i, p in numbered(src, "lateral"):
+            conv(p, f"semantic_head.lateral_convs.{i}.conv", True)
+        for i, p in numbered(src, "conv"):
+            conv(p, f"semantic_head.convs.{i}.conv", True)
+        conv(src["conv_embedding"], "semantic_head.conv_embedding.conv",
+             True)
+        conv(src["conv_logits"], "semantic_head.conv_logits", True)
     if "refinement_head" in params:
         fc_head(params["refinement_head"], "refinement_head")
     if "refinement_mask_head" in params:

@@ -214,6 +214,38 @@ def anchor_target_single(draws, site, anchors, inside, gt_boxes, gt_valid,
     )
 
 
+def anchor_target_focal_single(anchors, inside, gt_boxes, gt_valid,
+                               gt_labels, cfg, target_means, target_stds):
+    """Anchor targets of a focal-loss single-stage head for one image
+    (`mrcnn3d/core/targets.py:anchor_target_focal_single`; the reference
+    samples with PseudoSampler under focal loss): no sampling, every
+    assigned anchor counts, positives carry their gt's class.
+
+    anchors (A, 6), inside (A,) bool; cfg: train_cfg.rpn.  Returns dict of
+    labels (A,) (0 background), label_weights (A,), bbox_targets (A, 6),
+    bbox_weights (A, 6) and num_pos (0-d, at least 1).
+    """
+    assigner = cfg["assigner"]
+    assigned, _, _ = max_iou_assign(
+        anchors, inside, gt_boxes, gt_valid, assigner["pos_iou_thr"],
+        assigner["neg_iou_thr"], assigner["min_pos_iou"])
+    is_pos = assigned > 0
+    is_neg = assigned == 0
+    gt_idx = (assigned - 1).clamp(min=0)
+    pos_w = float(cfg.get("pos_weight", -1))
+    pos_label_w = 1.0 if pos_w <= 0 else pos_w
+    deltas = bbox2delta3d(anchors, gt_boxes[gt_idx], target_means,
+                          target_stds)
+    return dict(
+        labels=torch.where(is_pos, gt_labels[gt_idx].long(), 0),
+        label_weights=torch.where(is_pos, pos_label_w,
+                                  torch.where(is_neg, 1.0, 0.0)),
+        bbox_targets=torch.where(is_pos[:, None], deltas, 0.0),
+        bbox_weights=is_pos[:, None].float().expand(-1, 6),
+        num_pos=is_pos.sum().clamp(min=1),
+    )
+
+
 class RcnnSample(NamedTuple):
     """The fixed-size R-CNN sample of an image (or, stacked, a batch).
 

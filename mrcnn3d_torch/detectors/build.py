@@ -1,12 +1,13 @@
 """Detector builder: reference config dict -> Detector3D module.
 
-Port of `mrcnn3d/detectors/build.py` for its 3-D two-stage rows: the
-flagship `MaskRCNN3D2Scales` and its ablation arms, which differ only in
-pathway count, head sharing and which heads exist (SURVEY.md section
-2.4), so each is a row of flags.  The config keys read here are the ones
-`mrcnn3d/detectors/build.py` reads, so narrowed widths (`backbone.base_width`,
-`neck.out_channels`, `fc_out_channels`) build the same shapes in both
-packages.
+Port of `mrcnn3d/detectors/build.py` for its 3-D rows: the flagship
+`MaskRCNN3D2Scales` and its ablation arms, which differ only in pathway
+count, head sharing and which heads exist (SURVEY.md section 2.4), so
+each is a row of flags; and the single-stage and cascade families
+(RetinaNet3D, CascadeRCNN3D, HybridTaskCascade3D).  The config keys read
+here are the ones `mrcnn3d/detectors/build.py` reads, so narrowed widths
+(`backbone.base_width`, `neck.out_channels`, `fc_out_channels`) build
+the same shapes in both packages.
 """
 from __future__ import annotations
 
@@ -34,14 +35,16 @@ TYPES = {
     "MaskRCNN3D3ScalesOnePathway": dict(num_scales=3, share_heads=True),
     "MaskRCNN3D2ScalesOnePathwayOneRPN": dict(
         num_scales=2, share_heads=True, with_refinement=True, one_rpn=True),
+    "RetinaNet3D": dict(num_scales=1, with_bbox=False, with_mask=False,
+                        single_stage=True),
+    "CascadeRCNN3D": dict(num_scales=1, with_mask=False, cascade=True),
+    "HybridTaskCascade3D": dict(num_scales=1, with_mask=True, cascade=True,
+                                htc=True),
 }
 SUPPORTED = tuple(TYPES)
 
 # the JAX package's other types, by the ROADMAP Queue A item that ports them
 NOT_PORTED = {
-    **dict.fromkeys(("RetinaNet3D",), "11.5 (RetinaNet3D)"),
-    **dict.fromkeys(("CascadeRCNN3D", "HybridTaskCascade3D"),
-                    "11.6 (Cascade and HTC)"),
     **dict.fromkeys(("RPN", "FasterRCNN", "FastRCNN", "MaskRCNN",
                      "RetinaNet", "CascadeRCNN", "HybridTaskCascade", "SSD",
                      "MaskRCNNRGB", "MaskRCNNRGB2"),
@@ -54,7 +57,9 @@ DEFAULT_PARCELLATIONS = 15
 
 def detector_flags(cfg):
     """The Detector3D flags of cfg.model's type, defaults filled in as
-    `mrcnn3d/detectors/build.py:64-78` fills them."""
+    `mrcnn3d/detectors/build.py:64-105` fills them: a cascade's stage
+    count is len(train_cfg.rcnn) when that is a list, else 3; HTC's
+    semantic flags come from model.semantic_head."""
     m = cfg.model
     kind = m["type"]
     if kind not in TYPES:
@@ -76,6 +81,18 @@ def detector_flags(cfg):
     if kind == "MaskRCNN3DParcel" and not parcels:
         parcels = DEFAULT_PARCELLATIONS
     flags["num_parcellations"] = parcels
+    flags.setdefault("single_stage", False)
+    stages = 0
+    if flags.pop("cascade", False):
+        rcnn = cfg.train_cfg.get("rcnn") if "train_cfg" in cfg else None
+        stages = len(rcnn) if isinstance(rcnn, (list, tuple)) else 3
+    flags["cascade_stages"] = stages
+    flags.setdefault("htc", False)
+    sem = m.get("semantic_head") if flags["htc"] else None
+    flags["with_semantic"] = sem is not None
+    if sem is not None:
+        flags["semantic_num_classes"] = sem.get("num_classes", 2)
+        flags["semantic_fusion_level"] = sem.get("fusion_level", 1)
     return flags
 
 

@@ -22,6 +22,15 @@ Per train step: one K1 launch per scale's proposals and one K2 launch
 mask and the refinement mask (the flagship: K1 2, K2 5).  The RPN-only
 detector runs one K1 launch at inference and none in training.
 
+The single-stage and cascade families (`mrcnn3d/detectors/pipeline.py`
+single_stage_*, cascade_*): RetinaNet3D decodes every level's top
+anchors and runs one class-wise K1 launch (none in training, which has
+no proposals); a cascade runs the RPN's K1 launch, one K2 launch per
+stage's bbox align and the class-wise K1 launch, and HTC adds one K2
+launch per stage on the semantic map (one level) and, for the masks, one
+on the FPN and one on the semantic map (inference: K1 2, K2 8; training:
+K1 1, K2 and its backward 12).
+
 Stable sorts stand in for JAX's argsort and lax.top_k, which break ties
 toward the lower index.
 """
@@ -30,10 +39,12 @@ from __future__ import annotations
 from typing import NamedTuple, Sequence
 
 import torch
+import torch.nn.functional as F
 
 from ..core.anchors import AnchorGenerator3D, anchor_inside_flags
 from ..core.post import multiclass_nms_3d
 from ..core.targets import (
+    anchor_target_focal_single,
     anchor_target_single,
     cat_samples,
     mask_target_single,
@@ -43,12 +54,15 @@ from ..core.targets import (
 from ..ops.box3d import delta2bbox3d
 from ..ops.losses import (
     accuracy,
+    expand_binary_labels,
     mask_cross_entropy,
     weighted_binary_cross_entropy,
     weighted_cross_entropy,
+    weighted_sigmoid_focal_loss,
     weighted_smoothl1,
 )
 from ..ops.nms3d import nms_3d_mask_segments, sort_desc, top_kept
+from ..ops.resize3d import jax_resize
 from ..ops.roi_align3d import multi_level_roi_align_3d
 
 RPN_MEANS = (0.0,) * 6
@@ -98,11 +112,14 @@ def build_anchor_set(featmap_sizes, img_shape, anchor_cfg, device="cpu",
     return AnchorSet(anchors, inside)
 
 
-def anchor_sets_for(model, scale_anchor_cfgs, shapes, device="cpu"):
-    """One AnchorSet per scale, for the (D, H, W) input of each scale."""
+def anchor_sets_for(model, scale_anchor_cfgs, shapes, device="cpu",
+                    allowed_border=0):
+    """One AnchorSet per scale, for the (D, H, W) input of each scale.
+    Training passes train_cfg.rpn.allowed_border, as
+    `mrcnn3d/apis/train_api.py:compute_anchor_sets` does."""
     return [
         build_anchor_set(model.featmap_sizes((d, h, w)), (h, w, 3, d), ac,
-                         device)
+                         device, allowed_border)
         for (d, h, w), ac in zip(shapes, scale_anchor_cfgs)
     ]
 
@@ -230,6 +247,10 @@ def simple_test(model, batch, cfg, anchor_sets, rescale=True, mark=None):
     head (RPN3D) the 1.0x proposals are the detections, label 0.
     """
     mark = mark or _no_mark
+    if model.single_stage:
+        return single_stage_test(model, batch, cfg, anchor_sets, mark)
+    if model.cascade_stages > 0:
+        return cascade_simple_test(model, batch, cfg, anchor_sets, mark)
     test_cfg = cfg.test_cfg
     rcnn_test = test_cfg["rcnn"]
     roi_cfg = cfg.model["bbox_roi_extractor"]
@@ -446,17 +467,22 @@ def bbox_stage_loss(cls_score, bbox_pred, samples, num_classes, pos_weight,
     }
 
 
-def _mask_branch_loss(feats, samples, gt_masks, mask_roi_cfg, rcnn_cfg, fwd):
+def _mask_branch_loss(feats, samples, gt_masks, mask_roi_cfg, rcnn_cfg, fwd,
+                      fuse=None):
     """The positive rois' mask branch (reference two_stage_3d_2scales.py
-    :301-327): the positive quota's slots -> RoIAlign -> `fwd` logits ->
-    mask targets -> mask BCE."""
+    :301-327, htc.py:72-111): the positive quota's slots -> RoIAlign (+
+    `fuse(rois, valid)`, HTC's semantic features) -> `fwd` logits -> mask
+    targets -> mask BCE."""
     sampler = rcnn_cfg["sampler"]
     quota = int(round(sampler["num"] * sampler["pos_fraction"]))
     pos_rois = samples.rois[:, :quota]
     pos_mask = samples.is_pos[:, :quota]
     pos_gt = samples.gt_idx[:, :quota]
     rois, rvalid = flat_rois(pos_rois, pos_mask)
-    mpred = fwd(roi_align(feats, rois, mask_roi_cfg, rvalid))
+    mfeats = roi_align(feats, rois, mask_roi_cfg, rvalid)
+    if fuse is not None:
+        mfeats = mfeats + fuse(rois, rvalid)
+    mpred = fwd(mfeats)
     size, size_d = rcnn_cfg["mask_size"], rcnn_cfg["mask_size_depth"]
     targets = torch.stack([
         mask_target_single(pos_rois[i], pos_mask[i], pos_gt[i], gt_masks[i],
@@ -525,6 +551,12 @@ def forward_train(model, batch, cfg, anchor_sets, draws, mark=None):
     total is the sum of the entries whose key contains "loss".
     """
     mark = mark or _no_mark
+    if model.single_stage:
+        return single_stage_forward_train(model, batch, cfg, anchor_sets,
+                                          mark)
+    if model.cascade_stages > 0:
+        return cascade_forward_train(model, batch, cfg, anchor_sets, draws,
+                                     mark)
     train_cfg = cfg.train_cfg
     rcnn_cfg = train_cfg["rcnn"]
     nc = model.num_classes
@@ -635,3 +667,388 @@ def _total(losses):
     """The sum of the entries whose key contains "loss" (reference
     apis/train.py:17-34 parse_losses)."""
     return sum(v for k, v in losses.items() if "loss" in k)
+
+
+# ---------------------------------------------------------------------------
+# the single-stage family (RetinaNet3D)
+# ---------------------------------------------------------------------------
+
+
+def _level_rows(t, b, width):
+    """(B, A*width, d, h, w) -> (B, d*h*w*A, width): the anchors' (z, y,
+    x, a) order."""
+    return t.permute(0, 2, 3, 4, 1).reshape(b, -1, width)
+
+
+def single_stage_test(model, batch, cfg, anchor_sets, mark=_no_mark):
+    """RetinaNet-style inference (`mrcnn3d/detectors/pipeline.py`
+    single_stage_test_single, vmapped there): per level the top nms_pre
+    anchors by their best sigmoid class score, decoded; then the
+    class-wise NMS of every level's rows at once (one K1 launch).
+    Returns dict(dets, labels, valid)."""
+    test_cfg = cfg.test_cfg
+    rcnn = test_cfg["rcnn"]
+    nms_pre = test_cfg["rpn"]["nms_pre"] if "rpn" in test_cfg else 1000
+    means, stds = rpn_codec(cfg)
+    c_out = model.num_classes - 1
+    imgs = batch["imgs"]
+    b = imgs.shape[0]
+    feats = model.extract_feat(imgs)
+    mark("backbone_fpn_0")
+    outs = model.rpn(feats, 0)
+    boxes, scores = [], []
+    for (cls, reg), anchors in zip(outs, anchor_sets[0].anchors):
+        sc = torch.sigmoid(_level_rows(cls.float(), b, c_out))
+        deltas = _level_rows(reg.float(), b, 6)
+        n = sc.shape[1]
+        if n > nms_pre:
+            top_i = sort_desc(sc.max(-1).values)[1][:, :nms_pre]
+            anchors = anchors[top_i]
+            deltas = torch.gather(deltas, 1,
+                                  top_i[..., None].expand(-1, -1, 6))
+            sc = torch.gather(sc, 1, top_i[..., None].expand(-1, -1, c_out))
+        else:
+            anchors = anchors.expand(b, n, 6)
+        boxes.append(delta2bbox3d(anchors, deltas, means, stds,
+                                  _img_shape(imgs)))
+        scores.append(sc)
+    scores = torch.cat(scores, 1)
+    # background column 0, then the per-class sigmoid scores
+    multi = torch.cat([scores.new_zeros(scores.shape[:2] + (1,)), scores],
+                      -1)
+    valid = torch.ones(scores.shape[:2], dtype=torch.bool,
+                       device=scores.device)
+    mark("decode")
+    dets, labels, dvalid, _ = multiclass_nms_3d(
+        torch.cat(boxes, 1), multi, valid, rcnn["score_thr"],
+        rcnn["nms"]["iou_thr"], rcnn["max_per_img"])
+    mark("nms")
+    return dict(dets=dets, labels=labels, valid=dvalid)
+
+
+def single_stage_loss(cls_outs, reg_outs, anchor_set, gt_boxes, gt_valid,
+                      gt_labels, cfg_ss, num_classes, means=RPN_MEANS,
+                      stds=RPN_STDS):
+    """The focal-loss head's loss (`mrcnn3d/detectors/pipeline.py`
+    single_stage_loss; reference anchor_head.py focal path): no
+    sampling, every assigned anchor counts, both losses averaged over
+    the batch's positives.  cls_outs[l] (B, A*(C-1), d, h, w); reg_outs[l]
+    (B, A*6, d, h, w)."""
+    b = cls_outs[0].shape[0]
+    c_out = num_classes - 1
+    cls_flat = torch.cat([_level_rows(c, b, c_out) for c in cls_outs], 1)
+    reg_flat = torch.cat([_level_rows(r, b, 6) for r in reg_outs], 1)
+    anchors = torch.cat(list(anchor_set.anchors))
+    inside = torch.cat(list(anchor_set.inside))
+    per_image = [
+        anchor_target_focal_single(anchors, inside, gt_boxes[i],
+                                   gt_valid[i], gt_labels[i], cfg_ss, means,
+                                   stds)
+        for i in range(b)
+    ]
+    tgt = {k: torch.stack([t[k] for t in per_image]) for k in per_image[0]}
+    num_pos = tgt["num_pos"].sum().float()
+    weights = tgt["label_weights"].reshape(-1)
+    bin_labels, _ = expand_binary_labels(tgt["labels"].reshape(-1), weights,
+                                         c_out)
+    return {
+        "loss_cls": weighted_sigmoid_focal_loss(
+            cls_flat.reshape(-1, c_out), bin_labels, weights[:, None],
+            num_pos, gamma=cfg_ss.get("gamma", 2.0),
+            alpha=cfg_ss.get("alpha", 0.25)),
+        "loss_reg": weighted_smoothl1(
+            reg_flat.reshape(-1, 6), tgt["bbox_targets"].reshape(-1, 6),
+            tgt["bbox_weights"].reshape(-1, 6),
+            cfg_ss.get("smoothl1_beta", 1.0 / 9.0), num_pos),
+    }
+
+
+def single_stage_forward_train(model, batch, cfg, anchor_sets,
+                               mark=_no_mark):
+    """RetinaNet3D's training forward: the focal head's losses (no
+    proposals, no draws)."""
+    means, stds = rpn_codec(cfg)
+    feats = model.extract_feat(batch["imgs"])
+    mark("backbone_fpn_0")
+    outs = model.rpn(feats, 0)
+    losses = single_stage_loss(
+        [o[0] for o in outs], [o[1] for o in outs], anchor_sets[0],
+        batch["gt_boxes"], batch["gt_valid"], batch["gt_labels"],
+        cfg.train_cfg["rpn"], model.num_classes, means, stds)
+    mark("targets")
+    return _total(losses), losses
+
+
+# ---------------------------------------------------------------------------
+# the cascade family (CascadeRCNN3D, HybridTaskCascade3D)
+# ---------------------------------------------------------------------------
+
+
+def _semantic_roi_feats(sem_feat, rois, rvalid, cfg, out, out_d):
+    """HTC's semantic features of the rois (`mrcnn3d/detectors/pipeline.py`
+    _semantic_roi_feats; reference htc.py:57-63): one K2 launch on the
+    semantic map alone (its one level: every roi maps to it), then an
+    adaptive mean to the (out_d, out, out) grid when the extractor's
+    grid differs.  JAX's bins, [floor(o*I/O), ceil((o+1)*I/O)), are
+    `adaptive_avg_pool3d`'s."""
+    scfg = cfg.model.get("semantic_roi_extractor", {})
+    layer = scfg.get("roi_layer", {})
+    s_out = layer.get("out_size", out)
+    s_out_d = layer.get("out_size_depth", out_d)
+    x = multi_level_roi_align_3d(
+        [sem_feat], rois, s_out, s_out_d, scfg.get("featmap_strides", [8]),
+        scfg.get("featmap_strides_depth", [4]), layer.get("sample_num", 2),
+        valid=rvalid)
+    if s_out != out or s_out_d != out_d:
+        x = F.adaptive_avg_pool3d(x, (out_d, out, out))
+    return x
+
+
+def _fusion(cfg):
+    return tuple(cfg.model.get("semantic_fusion", ("bbox", "mask")))
+
+
+def _cascade_codec(cfg):
+    head = cfg.model["bbox_head"]
+    return tuple(head["target_means"]), tuple(head["target_stds"])
+
+
+def _cascade_proposals(model, imgs, feats, cfg, anchor_set, stage_cfg):
+    """The RPN of a cascade: (rpn outputs, proposal boxes, valid), the
+    proposals from detached outputs."""
+    rpn_means, rpn_stds = rpn_codec(cfg)
+    outs = model.rpn(feats, 0)
+    with torch.no_grad():
+        pboxes, _, pvalid = gen_proposals(
+            [o[0].detach() for o in outs], [o[1].detach() for o in outs],
+            anchor_set, _img_shape(imgs), stage_cfg, means=rpn_means,
+            stds=rpn_stds)
+    return outs, pboxes, pvalid
+
+
+def _stage_roi_feats(feats, sem_feat, rois, rvalid, cfg):
+    """A stage's bbox RoI features: the FPN align, plus the semantic
+    features under HTC's bbox fusion."""
+    roi_cfg = cfg.model["bbox_roi_extractor"]
+    x = roi_align(feats, rois, roi_cfg, rvalid)
+    if sem_feat is not None and "bbox" in _fusion(cfg):
+        layer = roi_cfg["roi_layer"]
+        x = x + _semantic_roi_feats(sem_feat, rois, rvalid, cfg,
+                                    layer["out_size"],
+                                    layer["out_size_depth"])
+    return x
+
+
+def _mask_fuse(sem_feat, cfg):
+    """HTC's mask-stage fusion `fuse(rois, valid)`, or None."""
+    if sem_feat is None or "mask" not in _fusion(cfg):
+        return None
+    layer = cfg.model["mask_roi_extractor"]["roi_layer"]
+    return lambda rois, rvalid: _semantic_roi_feats(
+        sem_feat, rois, rvalid, cfg, layer["out_size"],
+        layer["out_size_depth"])
+
+
+def cascade_simple_test(model, batch, cfg, anchor_sets, mark=_no_mark):
+    """Cascade / HTC inference (`mrcnn3d/detectors/pipeline.py`
+    cascade_simple_test; reference htc.py:266-389): the stages in turn,
+    each decoding its boxes from the previous stage's, their softmax
+    scores averaged; the class-wise NMS on the last boxes.  HTC adds the
+    semantic features to every roi pass and, for the masks, runs every
+    stage's mask head with information flow on the detections and
+    averages their sigmoid probabilities, clipped to [1e-6, 1 - 1e-6] and
+    returned as logits (zeros on invalid rows).  Honours
+    test_cfg.return_bbox_only."""
+    test_cfg = cfg.test_cfg
+    rcnn_test = test_cfg["rcnn"]
+    means, stds = _cascade_codec(cfg)
+    imgs = batch["imgs"]
+    b = imgs.shape[0]
+    img_shape = _img_shape(imgs)
+    feats = model.extract_feat(imgs)
+    mark("backbone_fpn_0")
+    _, boxes, pvalid = _cascade_proposals(model, imgs, feats, cfg,
+                                          anchor_sets[0], test_cfg["rpn"])
+    mark("proposals_0")
+    sem_feat = model.semantic_forward(feats)[1] if model.with_semantic \
+        else None
+    if sem_feat is not None:
+        mark("semantic")
+    score_sum = None
+    for t in range(model.cascade_stages):
+        rois, rvalid = flat_rois(boxes, pvalid)
+        cls_score, bbox_pred = model.bbox_forward(
+            _stage_roi_feats(feats, sem_feat, rois, rvalid, cfg), t)
+        sc = torch.softmax(cls_score.float(), dim=-1)
+        score_sum = sc if score_sum is None else score_sum + sc
+        boxes = delta2bbox3d(rois[:, 1:], bbox_pred.float(), means, stds,
+                             img_shape).reshape(b, -1, 6)
+        mark(f"stage_{t}")
+    scores = (score_sum / model.cascade_stages).reshape(b, boxes.shape[1],
+                                                        -1)
+    dets, labels, dvalid, _ = multiclass_nms_3d(
+        boxes, scores, pvalid, rcnn_test["score_thr"],
+        rcnn_test["nms"]["iou_thr"], rcnn_test["max_per_img"])
+    mark("nms")
+    out = dict(dets=dets, labels=labels, valid=dvalid)
+    if model.with_mask and model.htc and \
+            not test_cfg.get("return_bbox_only", False):
+        out["mask_logits"] = htc_mask_stage(model, feats, sem_feat, dets,
+                                            dvalid, cfg)
+        mark("mask")
+    return out
+
+
+def htc_mask_stage(model, feats, sem_feat, dets, dvalid, cfg):
+    """HTC's mask ensemble over the valid detection slots: one FPN align
+    (+ the semantic align), every stage's head with information flow, at
+    most MASK_HEAD_CHUNK rows a call; the mean sigmoid probability as a
+    logit."""
+    mask_cfg = cfg.model["mask_roi_extractor"]
+    rois, rvalid = flat_rois(dets[..., :6], dvalid)
+    rows = torch.nonzero(rvalid).flatten()
+    mfeat = roi_align(feats, rois[rows], mask_cfg, rvalid[rows])
+    fuse = _mask_fuse(sem_feat, cfg)
+    if fuse is not None:
+        mfeat = mfeat + fuse(rois[rows], rvalid[rows])
+    layer = mask_cfg["roi_layer"]
+    od, o = layer["out_size_depth"], layer["out_size"]
+    out = torch.zeros((rois.shape[0], model.num_classes, 2 * od, 2 * o,
+                       2 * o), dtype=torch.float32, device=mfeat.device)
+    info_flow = cfg.model.get("mask_info_flow", True)
+    stages = model.cascade_stages
+    for chunk in torch.split(torch.arange(rows.shape[0],
+                                          device=rows.device),
+                             MASK_HEAD_CHUNK):
+        x = mfeat[chunk]
+        last, prob_sum = None, None
+        for t in range(stages):
+            logits, feat = model.htc_mask_forward(x, last, t)
+            if info_flow:
+                last = feat
+            p = torch.sigmoid(logits.float())
+            prob_sum = p if prob_sum is None else prob_sum + p
+        mean_p = torch.clamp(prob_sum / stages, 1e-6, 1.0 - 1e-6)
+        out[rows[chunk]] = torch.log(mean_p) - torch.log1p(-mean_p)
+    return out
+
+
+def _semantic_loss(sem_logits, gt_seg, sem_cfg):
+    """The semantic head's CE over the fusion level's grid, the target
+    (B, D, H, W) resized there nearest as `jax.image.resize` does; the
+    ignore label and negative labels weigh 0 (reference htc.py:183-190)."""
+    gt = gt_seg.long()
+    if tuple(gt.shape[1:]) != tuple(sem_logits.shape[2:]):
+        gt = jax_resize(gt, sem_logits.shape[2:], "nearest")
+    ignore = int(sem_cfg.get("ignore_label", 255))
+    logp = torch.log_softmax(sem_logits.float(), dim=1)
+    keep = (gt != ignore) & (gt >= 0)
+    safe = torch.where(keep, gt, 0)
+    nll = -torch.gather(logp, 1, safe[:, None])[:, 0]
+    denom = torch.clamp(keep.sum(), min=1).float()
+    return float(sem_cfg.get("loss_weight", 0.2)) * \
+        torch.where(keep, nll, 0.0).sum() / denom
+
+
+def _htc_mask_stage_loss(model, feats, sem_feat, samples, stage, batch,
+                         cfg, rcnn_cfg):
+    """One HTC mask stage's loss (`mrcnn3d/detectors/pipeline.py`
+    _htc_mask_stage_loss; reference htc.py:72-111): the mask branch with
+    the semantic fusion, information flow through heads 0..stage-1 (with
+    their gradients, as the reference runs them in the graph)."""
+    info_flow = cfg.model.get("mask_info_flow", True)
+
+    def fwd(mfeats):
+        last = None
+        if info_flow:
+            for i in range(stage):
+                _, last = model.htc_mask_forward(mfeats, last, i, False)
+        return model.htc_mask_forward(mfeats, last, stage)[0]
+
+    return _mask_branch_loss(feats, samples, batch["gt_masks"],
+                             cfg.model["mask_roi_extractor"], rcnn_cfg, fwd,
+                             fuse=_mask_fuse(sem_feat, cfg))
+
+
+def cascade_forward_train(model, batch, cfg, anchor_sets, draws,
+                          mark=_no_mark):
+    """Cascade / HTC training losses (`mrcnn3d/detectors/pipeline.py`
+    cascade_forward_train; reference htc.py:156-264): the RPN; per stage
+    t, sampling against the previous stage's decoded (detached) boxes
+    under train_cfg.rcnn[t], the class-agnostic bbox loss weighted by
+    the stage's weight (top-level cfg.stage_loss_weights, default [1,
+    0.5, 0.25], read where the JAX package reads it); HTC adds the
+    semantic CE (when the batch has gt_semantic_seg) and an interleaved
+    mask stage that re-samples on this stage's boxes.
+
+    Draw sites: ("rpn", 0, image), ("cascade", t, image) and, for the
+    interleaved re-sample, ("htc_mask", t, image) -- JAX's keys 0, 2 + t
+    and 2 + stages + t of split(rng, 2 + 2 * stages)."""
+    train_cfg = cfg.train_cfg
+    stages = model.cascade_stages
+    rcnn_cfgs = train_cfg["rcnn"]
+    if not isinstance(rcnn_cfgs, (list, tuple)):
+        rcnn_cfgs = [rcnn_cfgs] * stages
+    weights = cfg.get("stage_loss_weights", [1.0, 0.5, 0.25][:stages])
+    means, stds = _cascade_codec(cfg)
+    rpn_means, rpn_stds = rpn_codec(cfg)
+    imgs = batch["imgs"]
+    b = imgs.shape[0]
+    img_shape = _img_shape(imgs)
+    gtb, gtv, gtl = batch["gt_boxes"], batch["gt_valid"], batch["gt_labels"]
+
+    feats = model.extract_feat(imgs)
+    mark("backbone_fpn_0")
+    outs, pboxes, pvalid = _cascade_proposals(
+        model, imgs, feats, cfg, anchor_sets[0], train_cfg["rpn_proposal"])
+    losses = rpn_loss([o[0] for o in outs], [o[1] for o in outs],
+                      anchor_sets[0], gtb, gtv, draws, ("rpn", 0),
+                      train_cfg["rpn"], means=rpn_means, stds=rpn_stds)
+    mark("rpn_targets_0")
+
+    sem_feat = None
+    if model.with_semantic:
+        sem_logits, sem_feat = model.semantic_forward(feats)
+        if "gt_semantic_seg" in batch:
+            losses["loss_semantic_seg"] = _semantic_loss(
+                sem_logits, batch["gt_semantic_seg"],
+                cfg.model.get("semantic_head", {}))
+        mark("semantic")
+
+    for t, rc in enumerate(rcnn_cfgs[:stages]):
+        samples = _sample_batch(draws, ("cascade", t), pboxes, pvalid, gtb,
+                                gtv, gtl, rc, means, stds)
+        rois, rvalid = flat_rois(samples.rois, samples.roi_valid)
+        cls_score, bbox_pred = model.bbox_forward(
+            _stage_roi_feats(feats, sem_feat, rois, rvalid, cfg), t)
+        labels = samples.labels.reshape(-1)
+        is_pos = samples.is_pos.reshape(-1)
+        pw = float(rc.get("pos_weight", -1))
+        pw = 1.0 if pw <= 0 else pw
+        lw = torch.where(samples.roi_valid.reshape(-1),
+                         torch.where(is_pos, pw, 1.0), 0.0)
+        avg_cls = torch.clamp((lw > 0).sum(), min=1).float()
+        avg_reg = (samples.pos_count.sum()
+                   + samples.neg_count.sum()).float()
+        w = float(weights[t])
+        losses[f"s{t}.loss_cls"] = w * weighted_cross_entropy(
+            cls_score, labels, lw, avg_cls)
+        losses[f"s{t}.loss_reg"] = w * weighted_smoothl1(
+            bbox_pred, samples.bbox_targets.reshape(-1, 6),
+            is_pos[:, None].float(), 1.0, avg_reg)
+        # the next stage's proposals: this stage's decoded boxes
+        pboxes = delta2bbox3d(rois[:, 1:], bbox_pred.detach().float(),
+                              means, stds, img_shape).reshape(b, -1, 6)
+        pvalid = samples.roi_valid
+        mark(f"stage_{t}")
+
+        if model.with_mask and model.htc:
+            msamples = samples
+            if cfg.model.get("interleaved", True):
+                msamples = _sample_batch(draws, ("htc_mask", t), pboxes,
+                                         pvalid, gtb, gtv, gtl, rc, means,
+                                         stds)
+            losses[f"s{t}.loss_mask"] = w * _htc_mask_stage_loss(
+                model, feats, sem_feat, msamples, t, batch, cfg, rc)
+            mark(f"mask_{t}")
+    return _total(losses), losses

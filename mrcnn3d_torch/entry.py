@@ -1,5 +1,7 @@
-"""Entry point: the flagship two-scale detector, or any 3-D two-stage
-variant of it (`detectors.build.TYPES`), ready to run.
+"""Entry point: the flagship two-scale detector, any 3-D two-stage
+variant of it, or a single-stage or cascade family (RetinaNet3D,
+CascadeRCNN3D, HybridTaskCascade3D; `detectors.build.TYPES`), ready to
+run.
 
     from mrcnn3d_torch.entry import build
     cfg = Config.fromfile(DEFAULT_CONFIG)
@@ -8,8 +10,9 @@ variant of it (`detectors.build.TYPES`), ready to run.
     dets, labels, valid, mask_logits = det.run(imgs, imgs_2)
 
 `imgs` is a (B, 3, D, H, W) volume, `imgs_2` its 1.5x twin (`imgs_3`
-the 2.25x one of a three-scale type; a single-scale type takes `imgs`
-alone).  `build` and `build_trainer` take a config file or a loaded
+the 2.25x one of a three-scale type; a single-scale type, every family
+among them, takes `imgs` alone; `mask_logits` of HTC are the stages'
+mean mask probability as a logit).  `build` and `build_trainer` take a config file or a loaded
 config of any type in the table.  The
 config's `test_cfg.return_bbox_only` decides whether masks are computed
 (the flagship config asks for boxes only).  `build` runs on CUDA unless
@@ -34,8 +37,10 @@ Training, on the same terms:
 
 `batch` holds imgs / imgs_2 (B, 3, D, H, W), gt_boxes{,_2} (B, G, 6),
 gt_labels{,_2} (B, G), gt_valid{,_2} (B, G) and gt_masks (B, G, D, H, W)
-at 1.0x (`detectors.pipeline.forward_train`).  The samplers draw from a
-torch.Generator seeded with `seed`; `trainer.state` is the
+at 1.0x (`detectors.pipeline.forward_train`; HTC also takes
+gt_semantic_seg (B, D, H, W), resized nearest to its semantic grid).
+Training anchors honour train_cfg.rpn.allowed_border.  The samplers
+draw from a torch.Generator seeded with `seed`; `trainer.state` is the
 `train.step.TrainState` that `train.checkpoint` saves and restores.
 """
 from __future__ import annotations

@@ -11,6 +11,14 @@ the RPN-only detector, `with_mask=False` the detection-only one, and
 names are the reference mmdet state_dict names (`rpn_head`,
 `rpn_head_2`, `bbox_head`, `mask_head_3`, ...).
 
+The single-stage and cascade families (`mrcnn3d/models/detector.py`
+:132-227): `single_stage` makes a RetinaHead3D the anchor head, named
+`bbox_head` as in mmdet's RetinaNet; `cascade_stages` > 0 makes one
+class-agnostic bbox head per stage (`bbox_head.{t}`), and with `htc` one
+HTCMaskHead3D per stage (`mask_head.{t}`) and, with `with_semantic`, the
+fused semantic head (`semantic_head`), whose `num_convs` is 4 whatever
+the config says, as the JAX package builds it.
+
 The module owns the parameters only; proposal decoding, RoIAlign, NMS
 and the stage logic live in `detectors/pipeline.py`.  Features run in
 `channels_last_3d` storage, so a level permuted to (B, D, H, W, C) is a
@@ -24,6 +32,9 @@ from torch import nn
 from .fpn3d import FPN3D
 from .heads import (
     FCNMaskHead3D,
+    FusedSemanticHead3D,
+    HTCMaskHead3D,
+    RetinaHead3D,
     RPNHead3D,
     SharedFCBBoxHead3D,
     SharedFCBBoxHead3DRefinement,
@@ -56,6 +67,13 @@ class Detector3D(nn.Module):
         mask_convs=4,
         roi_size=7,
         roi_size_depth=3,
+        single_stage=False,
+        stacked_convs=4,
+        cascade_stages=0,
+        htc=False,
+        with_semantic=False,
+        semantic_num_classes=2,
+        semantic_fusion_level=1,
     ):
         super().__init__()
         self.num_classes = num_classes
@@ -67,12 +85,35 @@ class Detector3D(nn.Module):
         self.with_refinement = with_refinement
         self.with_refinement_mask = with_refinement_mask
         self.num_parcellations = num_parcellations
+        self.single_stage = single_stage
+        self.cascade_stages = cascade_stages
+        self.htc = htc
+        self.with_semantic = with_semantic
         self.backbone = ResNet3D(depth=depth, base_width=base_width)
         self.neck = FPN3D(self.backbone.out_channels, fpn_channels, num_outs)
+        roi_features = fpn_channels * roi_size_depth * roi_size * roi_size
+        if single_stage:
+            self.bbox_head = RetinaHead3D(fpn_channels, stacked_convs,
+                                          num_anchors, num_classes - 1)
+            return
         for s in range(1 if one_rpn else num_scales):
             setattr(self, _scale_name("rpn_head", s),
                     RPNHead3D(fpn_channels, num_anchors))
-        roi_features = fpn_channels * roi_size_depth * roi_size * roi_size
+        if cascade_stages > 0:
+            self.bbox_head = nn.ModuleList([
+                SharedFCBBoxHead3D(roi_features, fc_out_channels,
+                                   num_classes, reg_class_agnostic=True)
+                for _ in range(cascade_stages)])
+            if with_mask and htc:
+                self.mask_head = nn.ModuleList([
+                    HTCMaskHead3D(fpn_channels, num_classes, mask_convs,
+                                  with_conv_res=t > 0)
+                    for t in range(cascade_stages)])
+            if with_semantic:
+                self.semantic_head = FusedSemanticHead3D(
+                    fpn_channels, num_outs, semantic_fusion_level,
+                    num_classes=semantic_num_classes)
+            return
         for s in range(1 if share_heads else num_scales):
             if with_bbox:
                 setattr(
@@ -106,13 +147,31 @@ class Detector3D(nn.Module):
         return self.neck(self.backbone(x))
 
     def rpn(self, feats, scale=0):
-        head = getattr(self, _scale_name("rpn_head",
-                                         0 if self.one_rpn else scale))
+        """Per level (cls, reg) of scale's anchor head (RetinaHead3D for
+        a single-stage model)."""
+        if self.single_stage:
+            head = self.bbox_head
+        else:
+            head = getattr(self, _scale_name("rpn_head",
+                                             0 if self.one_rpn else scale))
         return [head(f) for f in feats]
 
     def bbox_forward(self, roi_feats, scale=0):
-        """(cls, reg[, parcellation logits]) of scale's bbox head."""
+        """(cls, reg[, parcellation logits]) of scale's bbox head (of
+        stage `scale` in a cascade)."""
+        if self.cascade_stages > 0:
+            return self.bbox_head[scale](roi_feats)
         return self._head("bbox_head", scale)(roi_feats)
+
+    def htc_mask_forward(self, roi_feats, res_feat, stage,
+                         return_logits=True):
+        """Stage's HTC mask head with information flow: (logits or None,
+        features) (reference htc.py:98-105, 141-154)."""
+        return self.mask_head[stage](roi_feats, res_feat, return_logits)
+
+    def semantic_forward(self, feats):
+        """(logits, embedding) of the fused semantic head."""
+        return self.semantic_head(feats)
 
     def refinement_forward(self, roi_feats):
         return self.refinement_head(roi_feats)

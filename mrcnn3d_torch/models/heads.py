@@ -10,12 +10,22 @@
   * FCNMaskHead3D -- reference fcn_mask_head_3d.py:16-98: 3x3x3 convs
     (+bias +ReLU), a 2x transposed-conv upsample + ReLU, 1x1x1 per-class
     logits.  Output (N, num_classes, Dm, Hm, Wm).
+  * HTCMaskHead3D -- reference htc_mask_head.py:7-38: an FCN mask head
+    whose input adds the previous stage's mask features through a 1x1x1
+    `conv_res` (mask information flow).
+  * FusedSemanticHead3D -- reference fused_semantic_head.py: per-level
+    1x1x1 laterals summed at the fusion level's size, 3x3x3 convs, then
+    the class logits and the embedding that HTC fuses into its rois.
+  * RetinaHead3D -- reference retina_head.py lifted to 6-DoF: cls and reg
+    towers of 3x3x3 convs + ReLU, then per-anchor sigmoid class logits
+    and deltas.
 """
 from __future__ import annotations
 
 import torch
 from torch import nn
 
+from ..ops.resize3d import jax_resize
 from .layers import ConvModule3D
 
 
@@ -34,10 +44,12 @@ class RPNHead3D(nn.Module):
 class SharedFCBBoxHead3D(nn.Module):
     """Shared-FC bbox head; `with_cls=False` is the refinement head.
     Returns (cls, reg), or (cls, reg, parcellation logits) when
-    `num_parcellations` > 0."""
+    `num_parcellations` > 0.  `reg_class_agnostic`: 6 deltas, not 6 per
+    class (the cascade stages' heads)."""
 
     def __init__(self, in_features, fc_out_channels=1024, num_classes=2,
-                 num_fcs=2, with_cls=True, num_parcellations=0):
+                 num_fcs=2, with_cls=True, num_parcellations=0,
+                 reg_class_agnostic=False):
         super().__init__()
         dims = [in_features] + [fc_out_channels] * num_fcs
         self.shared_fcs = nn.ModuleList(
@@ -46,7 +58,8 @@ class SharedFCBBoxHead3D(nn.Module):
         self.fc_cls = (
             nn.Linear(fc_out_channels, num_classes) if with_cls else None
         )
-        self.fc_reg = nn.Linear(fc_out_channels, 6 * num_classes)
+        self.fc_reg = nn.Linear(
+            fc_out_channels, 6 if reg_class_agnostic else 6 * num_classes)
         self.fc_parcellations = (
             nn.Linear(fc_out_channels, num_parcellations)
             if num_parcellations > 0 else None
@@ -97,3 +110,87 @@ class FCNMaskHead3D(nn.Module):
             x = m(x)
         x = torch.relu(self.upsample(x))
         return self.conv_logits(x)
+
+
+class HTCMaskHead3D(FCNMaskHead3D):
+    """An FCN mask head with mask information flow: with `res_feat` (the
+    previous stage's features after its convs), the input first adds
+    `conv_res(res_feat)`.  The first stage never receives one and has no
+    `conv_res` (`with_conv_res=False`), as the JAX package's stage 0 has
+    no such parameters.  forward returns (logits, features); logits are
+    None with `return_logits=False` (an info-flow-only pass)."""
+
+    def __init__(self, channels=64, num_classes=2, num_convs=4,
+                 upsample_ratio=2, with_conv_res=True):
+        super().__init__(channels, num_classes, num_convs, upsample_ratio)
+        self.conv_res = (ConvModule3D(channels, channels, 1)
+                         if with_conv_res else None)
+
+    def forward(self, x, res_feat=None, return_logits=True):
+        if res_feat is not None:
+            x = x + self.conv_res(res_feat)
+        for m in self.convs:
+            x = m(x)
+        if not return_logits:
+            return None, x
+        return self.conv_logits(torch.relu(self.upsample(x))), x
+
+
+class FusedSemanticHead3D(nn.Module):
+    """The fused semantic branch.  Level `fusion_level`'s 1x1x1 lateral
+    sets the size; every other level's lateral is resized to it as
+    `jax.image.resize(..., "trilinear")` does (antialiased when it
+    downsamples, `ops.resize3d.jax_resize`) and added; then `num_convs`
+    3x3x3 convs + ReLU, and 1x1x1 convs to the class logits and to the
+    embedding.  forward(levels) -> (logits (B, num_classes, d, h, w),
+    embedding (B, C, d, h, w)) at the fusion level's size."""
+
+    def __init__(self, channels=64, num_ins=5, fusion_level=1, num_convs=4,
+                 num_classes=2):
+        super().__init__()
+        self.fusion_level = fusion_level
+        self.lateral_convs = nn.ModuleList(
+            [ConvModule3D(channels, channels, 1) for _ in range(num_ins)])
+        self.convs = nn.ModuleList(
+            [ConvModule3D(channels, channels, 3, padding=1, relu=True)
+             for _ in range(num_convs)])
+        self.conv_logits = nn.Conv3d(channels, num_classes, 1)
+        self.conv_embedding = ConvModule3D(channels, channels, 1)
+
+    def forward(self, feats):
+        fl = self.fusion_level
+        x = self.lateral_convs[fl](feats[fl])
+        size = x.shape[2:]
+        for i, (f, lateral) in enumerate(zip(feats, self.lateral_convs)):
+            if i != fl:
+                x = x + jax_resize(lateral(f), size, "trilinear")
+        for m in self.convs:
+            x = m(x)
+        return self.conv_logits(x), self.conv_embedding(x)
+
+
+class RetinaHead3D(nn.Module):
+    """forward(level) -> (cls (B, A * cls_out, d, h, w) sigmoid logits,
+    reg (B, A * 6, d, h, w)); `cls_out` is num_classes - 1."""
+
+    def __init__(self, channels=64, stacked_convs=4, num_anchors=1,
+                 cls_out_channels=1):
+        super().__init__()
+
+        def tower():
+            return nn.ModuleList(
+                [ConvModule3D(channels, channels, 3, padding=1, relu=True)
+                 for _ in range(stacked_convs)])
+
+        self.cls_convs = tower()
+        self.reg_convs = tower()
+        self.retina_cls = nn.Conv3d(channels, num_anchors * cls_out_channels,
+                                    3, padding=1)
+        self.retina_reg = nn.Conv3d(channels, num_anchors * 6, 3, padding=1)
+
+    def forward(self, x):
+        c, r = x, x
+        for cls_conv, reg_conv in zip(self.cls_convs, self.reg_convs):
+            c = cls_conv(c)
+            r = reg_conv(r)
+        return self.retina_cls(c), self.retina_reg(r)

@@ -80,3 +80,29 @@ def accuracy(logits, target, valid=None):
         return 100.0 * correct.mean()
     w = valid.float()
     return 100.0 * torch.sum(correct * w) / torch.clamp(w.sum(), min=1.0)
+
+
+def expand_binary_labels(labels, label_weights, label_channels):
+    """1-based class labels (N,) -> one-hot binary targets (N, C) and the
+    weights broadcast to them (reference losses.py:118-126; `mrcnn3d/ops/
+    losses.py:expand_binary_labels`): background (0) is all zeros."""
+    labels = labels.long()
+    cols = torch.arange(1, label_channels + 1, device=labels.device)
+    bin_labels = (labels[:, None] == cols[None, :]).float()
+    bin_weights = label_weights[:, None].expand(labels.shape[0],
+                                                label_channels)
+    return bin_labels, bin_weights
+
+
+def weighted_sigmoid_focal_loss(logits, target, weight, avg_factor,
+                                gamma=2.0, alpha=0.25):
+    """Sigmoid focal loss (reference py_sigmoid_focal_loss, losses.py
+    :35-55); target one-hot (N, C), weight broadcastable to it.  The BCE
+    is `_bce_with_logits`, so its gradient at logit 0 is JAX's."""
+    logits = logits.float()
+    p = torch.sigmoid(logits)
+    t = target.float()
+    pt = (1 - p) * t + p * (1 - t)
+    w = (alpha * t + (1 - alpha) * (1 - t)) * weight
+    w = w * pt ** gamma
+    return torch.sum(_bce_with_logits(logits, t) * w) / avg_factor

@@ -38,12 +38,15 @@ class TrainState:
     anchors: dict = dataclasses.field(default_factory=dict)
 
     def anchor_sets(self, shapes):
-        """Per-scale anchor sets for the (D, H, W) input of each scale."""
+        """Per-scale anchor sets for the (D, H, W) input of each scale,
+        inside flags under train_cfg.rpn.allowed_border (as
+        `mrcnn3d/apis/train_api.py:compute_anchor_sets`)."""
         key = tuple(tuple(int(v) for v in s) for s in shapes)
         if key not in self.anchors:
             dev = next(self.model.parameters()).device
+            allowed = self.cfg.train_cfg["rpn"].get("allowed_border", 0)
             self.anchors[key] = anchor_sets_for(
-                self.model, anchor_cfgs(self.cfg), key, dev)
+                self.model, anchor_cfgs(self.cfg), key, dev, allowed)
         return self.anchors[key]
 
 

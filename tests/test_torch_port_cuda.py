@@ -544,3 +544,78 @@ def test_roi_align_backward_third_pathway(cuda):
     args = (grad, shapes, rois, levels, valid, 7, 3, STRIDES, STRIDES_D, 2)
     _backward_matches(ra.roi_align_3d_backward_cuda(*args),
                       ra.roi_align_3d_backward_plain(*args))
+
+
+# ---------------------------------------------------------------------------
+# the single-stage and cascade families
+# ---------------------------------------------------------------------------
+
+
+FAMILIES = ("RetinaNet3D", "CascadeRCNN3D", "HybridTaskCascade3D")
+
+
+@pytest.mark.parametrize("type_name", FAMILIES)
+def test_family_small_card_vs_cpu(cuda, type_name):
+    """Each family at the narrow widths, inference and a train step, on
+    the card against the CPU, with its launches a step as
+    `chip_smoke.FAMILY_LAUNCHES` says (`chip_smoke.check_small_family`)."""
+    import chip_smoke
+
+    assert chip_smoke.FAMILIES == FAMILIES
+    result = chip_smoke.check_small_family(cuda, type_name)
+    assert result["detections"] > 0
+
+
+def _semantic_args(gen, dtype, device, n, out, out_d):
+    """HTC's semantic align on the 1.0x headline volume: the one
+    stride-8 level (16x64x64), n proposal-like rois, every roi mapped to
+    that level."""
+    import chip_smoke
+
+    shape = (64, 512, 512)
+    sem = torch.randn((1, 16, 64, 64, 64), generator=gen,
+                      device=device).to(dtype)
+    boxes, _, _ = chip_smoke.proposal_boxes(gen, n, shape, device)
+    rois = torch.cat([torch.zeros_like(boxes[:, :1]), boxes], 1)
+    valid = torch.rand((n,), generator=gen, device=device) > 0.1
+    levels = ra.map_roi_levels(rois, 1)
+    assert not levels.any()
+    return ([sem], rois, levels, valid, out, out_d, [8], [4], 2)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_roi_align_one_level_semantic_map(cuda, dtype, tol):
+    """K2 at the semantic extractor's 14x14x10 over 2000 rois on the one
+    stride-8 level, both paths counted as the kernel's window rule gives
+    them; the backward into that level as the plain version's."""
+    import chip_smoke
+
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    args = _semantic_args(gen, dtype, cuda, 2000, 14, 10)
+    ra.reset_path_counts()
+    got = ra.roi_align_3d_cuda(*args)
+    paths = ra.path_counts()
+    assert paths == chip_smoke.align_geometry(*args)["paths"]
+    assert paths["window"] + paths["direct"] == int(args[3].sum())
+    assert _align_matches(got, ra.roi_align_3d_plain(*args), tol)
+    grad = torch.randn(got.shape, generator=gen, device=cuda).to(dtype)
+    bargs = (grad, [args[0][0].shape], *args[1:])
+    _backward_matches(ra.roi_align_3d_backward_cuda(*bargs),
+                      ra.roi_align_3d_backward_plain(*bargs))
+
+
+def test_nms_sigmoid_classwise_4256_rows(cuda):
+    """K1 on RetinaNet3D's class-wise problem: one 4256-row segment an
+    image (1000 anchors on levels 0-3, 256 on level 4) of sigmoid scores,
+    two images in one launch, keep masks equal to the plain version's."""
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    counts = [4256, 4256]
+    boxes, scores, valid = _segments(gen, counts, cuda, False)
+    scores = torch.sigmoid(scores)
+    order = nms3d.segment_order(scores, valid, counts)
+    sboxes, svalid = boxes[order].contiguous(), valid[order]
+    got = nms3d.greedy_scan_cuda(sboxes, svalid, counts, 0.5)
+    assert torch.equal(got, nms3d.greedy_scan_plain(sboxes, svalid, counts,
+                                                    0.5))
+    assert 0 < int(got.sum()) < int(valid.sum())

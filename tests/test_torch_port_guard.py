@@ -1,8 +1,9 @@
 """The port stands alone: it imports neither JAX nor the JAX package
 (its training, whole-volume, evaluation, data, API and tool modules
-included), every 3-D two-stage variant builds and takes a CPU step and
-an inference without them, the types not yet ported raise naming their
-ROADMAP item, and its entry points never fall back to the CPU on their
+included), every 3-D two-stage variant and every single-stage and
+cascade family builds and takes a CPU step and an inference without
+them, the 2-D and SSD types (not yet ported) raise naming their ROADMAP
+item, and its entry points never fall back to the CPU on their
 own."""
 import os
 import subprocess
@@ -97,8 +98,24 @@ _SCRIPT = textwrap.dedent(
         out = vdet.run(*(torch.from_numpy(v) for v in
                          chip_smoke.variant_inputs(7, scales).values()))
         assert out[0].shape == (1, 16, 7), kind
-    for kind, item in (("RetinaNet3D", "11.5"), ("CascadeRCNN3D", "11.6"),
-                       ("MaskRCNN", "11.8")):
+    for kind in chip_smoke.FAMILIES:
+        fcfg = chip_smoke.family_narrow(chip_smoke.family_config(kind), 16)
+        ftrainer = build_trainer(fcfg, device="cpu")
+        fbatch = chip_smoke.family_train_batch(3, kind)
+        flosses = ftrainer.step({k: torch.from_numpy(v)
+                                 for k, v in fbatch.items()})
+        assert all(bool(torch.isfinite(v)) for v in flosses.values()), kind
+        fdet = build(fcfg, device="cpu")
+        out = fdet.run(
+            torch.from_numpy(chip_smoke.variant_inputs(7, 1)["imgs"]))
+        assert out[0].shape == (1, 8, 7), kind
+        assert (out[3] is not None) == (kind == "HybridTaskCascade3D"), kind
+        swept = fdet.tiled(dict(imgs=vol[:, :, :32]), patch_hw=32,
+                           patch_d=8, overlap=0.5)
+        if kind == "HybridTaskCascade3D":
+            per_class, segms = swept
+            assert len(segms[0]) == len(per_class[0]) > 0, kind
+    for kind, item in (("MaskRCNN", "11.8"), ("SSD", "11.8")):
         vcfg = chip_smoke.small_config()
         vcfg.model["type"] = kind
         try:
