@@ -142,14 +142,40 @@ Phases, each printing one JSON line with its seconds:
                  K1), one HTC inference step and one HTC train step (the
                  one-level semantic aligns and their backward) each
                  against its plain version and timed alone.
+ 17. multicard -- (a) a process group of one rank under NCCL: the
+                 flagship's train step at full width, bf16, on bench.py's
+                 training geometry, one process's (as phase 8) and the
+                 data-parallel one (mesh of one: normalizers and losses
+                 summed over the group, the gradient all-reduced), 1
+                 warm-up and 3 timed each, the counters zeroed just
+                 before the data-parallel steps and read just after
+                 (TRAIN_PER_STEP a step); the all-reduce's stage time and
+                 its time alone; the host time of the parts the
+                 data-parallel step adds or changes (HostSpans) and one
+                 profiled step of each (device busy, idle share, NCCL);
+                 evaluate_dataset on 2 synthetic volumes (29 finite
+                 stats).  (b) two gloo processes on
+                 the one card (parallel.launch.spawn, the kernels built
+                 in phase 2), narrow widths, float32: one data-parallel
+                 step against one process over the global batch of 2
+                 (every update and gradient within MULTICARD_TOL of its
+                 parameter's largest), make_batched_infer against serial
+                 simple_test and sharded_simple_test (depth over the
+                 two ranks) against the replicated one (valid and labels
+                 equal, the rest within 2e-3); every rank's counters
+                 show K1 and K2 (and K2's backward in the step); then
+                 entry.dryrun_multichip(2) on the card (a data-parallel
+                 and a hybrid step, two gloo processes).
 Then the kernels line, the card line and, last, the result line
 {"ok": true, "device": {...}}.  Any failure raises: the exit code is then
 not 0 and no result line is printed.
 
-    python3 chip_smoke.py --only train|learn|variants|families [--port DIR]
+    python3 chip_smoke.py --only train|learn|variants|families|multicard \
+        [--port DIR]
 
 runs phases 1-2 and then only phases 8-9 (train), 13-14 (learn and
-serve), 15 (variants) or 16 (families), and prints no result line:
+serve), 15 (variants), 16 (families) or 17 (multicard), and prints no
+result line:
 the way to set two versions of the port side by side on one card.
 --port takes another checkout (an older commit unpacked with git
 archive) whose mrcnn3d_torch these phases then drive; run it from this
@@ -710,14 +736,11 @@ def small_inputs(seed, with_proposals):
 def small_train_config():
     """The narrow config with the training budgets cut to its size:
     proposals 64 per level and image, the RPN sampler 64 anchors and the
-    R-CNN sampler 32 rois (a quarter positive) per image."""
-    cfg = small_config()
-    tc = cfg.train_cfg
-    for k in ("nms_pre", "nms_post", "max_num"):
-        tc["rpn_proposal"][k] = SMALL_BUDGET
-    tc["rpn"]["sampler"]["num"] = 64
-    tc["rcnn"]["sampler"]["num"] = 32
-    return cfg
+    R-CNN sampler 32 rois (a quarter positive) per image
+    (`entry.narrow_config`)."""
+    from mrcnn3d_torch.entry import narrow_config
+
+    return narrow_config(main_config(), SMALL_BUDGET)
 
 
 def small_train_batch(seed, batch_size=2, max_gt=4):
@@ -1146,6 +1169,7 @@ def profile_step(step, top=12):
     span_ms = (end - spans[0][0]) / 1e3
     port_ms = {kernel: sum(kernel_ms(prof, names).values())
                for kernel, names in KERNEL_CUDA_NAMES.items()}
+    nccl = [(e - s) / 1e3 for s, e, name in spans if "nccl" in name.lower()]
     ranked = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
     # the operator that launched each kernel, with its input shapes
     ops = sorted(
@@ -1155,6 +1179,7 @@ def profile_step(step, top=12):
     return dict(
         kernels=len(spans), busy_ms=busy / 1e3, span_ms=span_ms,
         idle_share=1.0 - busy / 1e3 / span_ms, port_kernels_ms=port_ms,
+        nccl_kernels=len(nccl), nccl_ms=sum(nccl),
         top_kernels_ms=[[name[:80], ms] for name, ms in ranked],
         top_ops_ms=[[a.key, str(a.input_shapes)[:120], a.count,
                      a.self_device_time_total / 1e3] for a in ops],
@@ -3014,6 +3039,504 @@ def run_families(device):
     return records, checks
 
 
+# ---------------------------------------------------------------------------
+# phase 17: multicard
+# ---------------------------------------------------------------------------
+
+# N ranks' step against one process's over the global batch: each
+# parameter's update and gradient, relative to that parameter's largest
+MULTICARD_TOL = 1e-5
+# the narrow world-2 runs: global batch, the depth-sharded inference's
+# volumes (depths that shard over 2 ranks down to stage 3, and to stage 2)
+MULTICARD_ROWS = 2
+SHARDED_SHAPES = [(16, 32, 32), (24, 48, 48)]
+
+
+class RecordDraws:
+    """A draw source that records each draw by (site, n, high)."""
+
+    def __init__(self, draws):
+        self.draws = draws
+        self.table = {}
+
+    def __call__(self, site, n, high):
+        r = self.draws(site, n, high)
+        self.table[(tuple(site), n, int(high))] = r.cpu()
+        return r
+
+
+class ReplayDraws:
+    """Replays a RecordDraws table; a draw it never saw (another site,
+    count or bound) raises KeyError."""
+
+    def __init__(self, table):
+        self.table = table
+
+    def __call__(self, site, n, high):
+        return self.table[(tuple(site), n, int(high))].to(high.device)
+
+
+def tensors(batch, device, dtype=None):
+    """A numpy batch as tensors on `device`, its floating arrays in
+    `dtype` if given."""
+    import torch
+
+    out = {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+    if dtype is not None:
+        out = {k: v.to(dtype) if v.is_floating_point() else v
+               for k, v in out.items()}
+    return out
+
+
+def step_record(trainer, batch, draws=None):
+    """One train step: its losses and each parameter's update (the
+    learning rate times SGD's momentum buffer), gradient (clipped) and
+    value after the step, on the CPU.  draws: the trainer's own unless
+    given."""
+    from mrcnn3d_torch.train.step import train_step
+
+    if draws is None:
+        losses = trainer.step(batch)
+    else:
+        losses = train_step(trainer.state, batch, draws)
+    opt = trainer.state.optimizer
+    lr = opt.param_groups[0]["lr"]
+    named = list(trainer.model.named_parameters())
+    return dict(
+        losses={k: float(v) for k, v in losses.items()},
+        updates={n: (lr * opt.state[p]["momentum_buffer"]).cpu()
+                 for n, p in named},
+        grads={n: p.grad.detach().cpu() for n, p in named},
+        params={n: p.detach().cpu() for n, p in named})
+
+
+def serial_train(cfg, weights, batch, device, draws=None, dtype=None):
+    """One process's step over the whole numpy `batch` from `weights`,
+    drawing by site (`KeyedDraws`) unless `draws` is given; the model
+    and the batch in `dtype` if given."""
+    from mrcnn3d_torch.entry import build_trainer
+
+    trainer = build_trainer(cfg, device=device, keyed_draws=True)
+    trainer.model.load_state_dict(weights)
+    trainer.model.to(dtype)
+    return step_record(trainer, tensors(batch, device, dtype), draws)
+
+
+def _rank_setup(device):
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device(device)
+
+
+def dist_train_rank(rank, world, cfg, weights, batch, layout, device,
+                    table=None, dtype=None):
+    """A rank of one multi-process train step on an (n_data, n_depth)
+    `layout`, from `weights`, on its rows of the numpy global `batch`
+    (draws replayed from `table`, else keyed by site): step_record plus
+    this rank's kernel launches."""
+    from mrcnn3d_torch.entry import build_trainer
+    from mrcnn3d_torch.parallel.mesh import local_rows, make_mesh2
+
+    device = _rank_setup(device)
+    mesh = make_mesh2(*layout)
+    trainer = build_trainer(cfg, device=device, mesh=mesh)
+    trainer.model.load_state_dict(weights)
+    trainer.model.to(dtype)
+    rows = local_rows(tensors(batch, device, dtype), mesh.data_rank,
+                      mesh.n_data)
+    zero_counts()
+    rec = step_record(trainer, rows,
+                      None if table is None else ReplayDraws(table))
+    rec["launches"] = kernel_counts()
+    return rec
+
+
+def dist_infer_rank(rank, world, cfg, batches, device):
+    """A rank of multi-process inference with seed 0's weights on numpy
+    global batches, by mode: "batched" (`make_batched_infer`), "sharded"
+    (`sharded_simple_test`, depth over the world).  {mode: (the outputs
+    as numpy, this rank's kernel launches)}."""
+    from mrcnn3d_torch.entry import build
+    from mrcnn3d_torch.parallel.batched import make_batched_infer
+    from mrcnn3d_torch.parallel.spatial import sharded_simple_test
+
+    device = _rank_setup(device)
+    det = build(cfg, device=device, seed=0)
+    runs = {"batched": make_batched_infer(det),
+            "sharded": lambda b: dict(zip(("dets", "labels", "valid"),
+                                          sharded_simple_test(det)(b)))}
+    out = {}
+    for mode, batch in batches.items():
+        zero_counts()
+        got = runs[mode](tensors(batch, device))
+        out[mode] = ({k: v.cpu().numpy() for k, v in got.items()},
+                     kernel_counts())
+    return out
+
+
+def serial_infer(cfg, batch, device):
+    """`simple_test` in one process with seed 0's weights; numpy."""
+    from mrcnn3d_torch.entry import build
+
+    det = build(cfg, device=device, seed=0)
+    out = det.simple_test(tensors(batch, device))
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def compare_steps(got, want, tol, what, keys=("updates", "grads")):
+    """Each parameter's update and gradient within `tol` of the largest
+    magnitude of `want`'s, the losses within `tol` relative.  Returns the
+    worst of those ratios."""
+    worst = 0.0
+    for kind in keys:
+        for name, w in want[kind].items():
+            scale = float(w.abs().max())
+            err = float((got[kind][name] - w).abs().max())
+            if not err <= tol * scale:
+                raise AssertionError(f"{what}: {kind} of {name} differ by "
+                                     f"{err}, largest {scale}")
+            worst = max(worst, err / scale if scale else 0.0)
+    for k, v in want["losses"].items():
+        err = abs(got["losses"][k] - v)
+        if not err <= tol * max(abs(v), 1.0):
+            raise AssertionError(f"{what}: {k} {got['losses'][k]} against "
+                                 f"{v}")
+    return worst
+
+
+def train_job(cfg, batch, layout, device, dtype=None):
+    """A multi-process step on `layout` against one process's over the
+    same global batch, from the same weights and keyed draws, the model
+    and batch in `dtype` if given.  Returns (job, check): job, the rank
+    function and its arguments; check(the ranks' returns), every rank's
+    record within MULTICARD_TOL -> (worst ratio, the ranks' launches)."""
+    from mrcnn3d_torch.detectors.build import build_detector
+
+    weights = build_detector(cfg, device="cpu", seed=0,
+                             train=True).state_dict()
+    want = serial_train(cfg, weights, batch, device, dtype=dtype)
+
+    def check(ranks):
+        worst = max(compare_steps(r, want, MULTICARD_TOL,
+                                  f"{layout} rank {i}")
+                    for i, r in enumerate(ranks))
+        return worst, [r["launches"] for r in ranks]
+
+    return (dist_train_rank, (cfg, weights, batch, layout, str(device),
+                              None, dtype)), check
+
+
+def infer_job(cfg, batches, device):
+    """Two ranks' inference of each mode (`dist_infer_rank`) against
+    serial simple_test on its batch.  Returns (job, check): check(the
+    ranks' returns), valid and labels equal, the rest within
+    PIPELINE_ATOL -> {mode: (error, the ranks' launches)}."""
+    wants = {mode: serial_infer(cfg, batch, device)
+             for mode, batch in batches.items()}
+
+    def check(ranks):
+        out = {}
+        for mode, want in wants.items():
+            keys = want if mode == "batched" else ("dets", "labels",
+                                                   "valid")
+            err = max(compare_outputs(r[mode][0], {k: want[k] for k in keys},
+                                      PIPELINE_ATOL, f"{mode} rank {i}")
+                      for i, r in enumerate(ranks))
+            out[mode] = (err, [r[mode][1] for r in ranks])
+        return out
+
+    return (dist_infer_rank, (cfg, batches, str(device))), check
+
+
+def run_jobs(rank, world, jobs):
+    """Several rank functions, in turn, in one spawned process."""
+    return [fn(rank, world, *args) for fn, args in jobs]
+
+
+def check_dist_train(cfg, batch, layout, device, workdir=None, dtype=None):
+    """`train_job` spawned and checked."""
+    from mrcnn3d_torch.parallel.launch import spawn
+
+    (fn, args), check = train_job(cfg, batch, layout, device, dtype)
+    return check(spawn(fn, layout[0] * layout[1], args, workdir=workdir))
+
+
+def check_dist_infer(cfg, batches, device, workdir=None):
+    """`infer_job` spawned on two ranks and checked."""
+    from mrcnn3d_torch.parallel.launch import spawn
+
+    (fn, args), check = infer_job(cfg, batches, device)
+    return check(spawn(fn, 2, args, workdir=workdir))
+
+
+def sharded_batch(seed=3):
+    """numpy volumes of SHARDED_SHAPES, one row."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    return {k: rng.randn(1, 3, *s).astype(np.float32)
+            for k, s in zip(("imgs", "imgs_2"), SHARDED_SHAPES)}
+
+
+def run_multicard_world2(device):
+    """Phase 17 (b): two gloo processes on the one card (one spawn),
+    narrow widths, float32: the data-parallel step against one process
+    over the global batch, batched inference against serial,
+    depth-sharded inference against replicated; every rank launches K1
+    and K2 (and K2's backward in the step)."""
+    from mrcnn3d_torch.parallel.launch import spawn
+
+    icfg = small_config()
+    for k in ("nms_pre", "nms_post", "max_num"):
+        icfg.test_cfg["rpn"][k] = SMALL_BUDGET
+    icfg.test_cfg["rcnn"]["max_per_img"] = SMALL_BUDGET
+    icfg.test_cfg["return_bbox_only"] = False
+    volumes = {k: v for k, v in small_train_batch(4, MULTICARD_ROWS).items()
+               if k.startswith("imgs")}
+    t = time.perf_counter()
+    train, train_check = train_job(
+        small_train_config(), small_train_batch(3, MULTICARD_ROWS), (2, 1),
+        device)
+    infer, infer_check = infer_job(
+        icfg, {"batched": volumes, "sharded": sharded_batch()}, device)
+    t_serial = time.perf_counter() - t
+    t = time.perf_counter()
+    ranks = spawn(run_jobs, 2, ([train, infer],))
+    t_ranks = time.perf_counter() - t
+    step_err, step_launches = train_check([r[0] for r in ranks])
+    infer = infer_check([r[1] for r in ranks])
+    runs = {"train": step_launches, **{m: r[1] for m, r in infer.items()}}
+    for what, per_rank in runs.items():
+        for i, launches in enumerate(per_rank):
+            need = ("nms3d", "roi_align3d") + (
+                ("roi_align3d_backward",) if what == "train" else ())
+            if not all(launches[k] > 0 for k in need):
+                raise AssertionError(f"world 2 {what}: rank {i} launches "
+                                     f"{launches}")
+    return dict(step_worst_ratio=step_err,
+                batched_max_err=infer["batched"][0],
+                sharded_max_err=infer["sharded"][0], launches=runs,
+                serial_s=t_serial, ranks_s=t_ranks)
+
+
+class HostSpans:
+    """Within the block, the host time (perf_counter, no sync) and the
+    calls of the parts a data-parallel step adds or changes: the
+    normalizers' all-reduces (`global_sum`, at each of its import
+    sites), the zero-fill of gradients, the gradient all-reduce and the
+    samplers' draws; `take()` returns {part: [ms, calls]} since the
+    last take."""
+
+    # (module, class or None, attribute, part)
+    SITES = (("detectors.pipeline", None, "global_sum", "global_sum"),
+             ("ops.losses", None, "global_sum", "global_sum"),
+             ("train.step", None, "global_sum", "global_sum"),
+             ("train.step", None, "_fill_grads", "fill_grads"),
+             ("train.step", None, "allreduce_grads", "allreduce_grads"),
+             ("core.targets", "KeyedDraws", "__call__", "draws"),
+             ("core.targets", "TorchDraws", "__call__", "draws"))
+
+    def __enter__(self):
+        import importlib
+
+        self.parts, self._saved = {}, []
+        for module, cls, name, label in self.SITES:
+            owner = importlib.import_module("mrcnn3d_torch." + module)
+            owner = getattr(owner, cls) if cls else owner
+            fn = getattr(owner, name)
+            self._saved.append((owner, name, fn))
+            setattr(owner, name, self._timed(fn, label))
+        return self
+
+    def _timed(self, fn, label):
+        def timed(*args, **kw):
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kw)
+            finally:
+                part = self.parts.setdefault(label, [0.0, 0])
+                part[0] += (time.perf_counter() - t0) * 1e3
+                part[1] += 1
+
+        return timed
+
+    def take(self):
+        parts, self.parts = self.parts, {}
+        return parts
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self._saved:
+            setattr(owner, name, fn)
+
+
+def run_multicard_world1(device, steps=3):
+    """Phase 17 (a): a process group of one rank under NCCL.  The
+    flagship's train step at full width, bf16, on bench.py's training
+    geometry, one process's (as phase 8) and the data-parallel one's
+    (mesh of one), 1 warm-up each, then `steps` timed each in turns
+    (plain, dp, dp, plain, ...), the counters zeroed just before each
+    data-parallel step and read just after (TRAIN_PER_STEP a step), the
+    host time of each part the data-parallel step adds or changes
+    (`HostSpans`) in the timed steps; one profiled step each, in turns;
+    the gradient all-reduce's stage time and its time alone; then
+    `evaluate_dataset` on a synthetic set."""
+    import math
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from mrcnn3d_torch.apis.test_api import evaluate_dataset
+    from mrcnn3d_torch.data.synthetic import make_synthetic_coco3d
+    from mrcnn3d_torch.entry import build, build_trainer
+    from mrcnn3d_torch.parallel.mesh import (allreduce_grads, get_dist_info,
+                                             make_mesh)
+    from mrcnn3d_torch.tools.common import test_dataset
+
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_multicard_")
+    torch.cuda.set_device(device)
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            init_method="file://" + os.path.join(tmp, "store"))
+    try:
+        if dist.get_backend() != "nccl":
+            raise AssertionError(f"backend {dist.get_backend()}")
+        torch.backends.cudnn.benchmark = True
+        batch = train_batch(torch.Generator(device=device).manual_seed(17),
+                            device)
+        trainers = {name: build_trainer(CONFIG, device=device, seed=0,
+                                        compute_dtype=torch.bfloat16,
+                                        mesh=mesh)
+                    for name, mesh in (("plain", None), ("dp", make_mesh(1)))}
+        runs = {name: dict(step_s=[], stages=[], parts=[], losses=[],
+                           launches=dict.fromkeys(TRAIN_PER_STEP, 0),
+                           max_memory_allocated_gib=0.0)
+                for name in trainers}
+        # one warm-up each, then in turns: plain, dp, dp, plain, ...
+        order = ["plain", "dp"] + [
+            name for i in range(steps)
+            for name in (("plain", "dp"), ("dp", "plain"))[i % 2]]
+        with HostSpans() as spans:
+            for i, name in enumerate(order):
+                run, trainer = runs[name], trainers[name]
+                timer = StageTimer()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                zero_counts()
+                spans.take()
+                t0 = time.perf_counter()
+                out = trainer.step(batch, mark=timer)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                for k, v in kernel_counts().items():
+                    run["launches"][k] += v
+                run["max_memory_allocated_gib"] = max(
+                    run["max_memory_allocated_gib"],
+                    torch.cuda.max_memory_allocated() / 2**30)
+                run["losses"].append(float(out["loss"]))
+                if i >= 2:
+                    run["step_s"].append(wall)
+                    run["stages"].append(timer.stages_ms())
+                    run["parts"].append(spans.take())
+        for name, run in runs.items():
+            if not all(math.isfinite(v) for v in run["losses"]):
+                raise AssertionError(f"multicard {name}: {run['losses']}")
+            stages, parts = run.pop("stages"), run.pop("parts")
+            run["median_step_s"] = float(np.median(run["step_s"]))
+            run["stage_ms"] = {k: float(np.median([s[k] for s in stages]))
+                               for k in stages[0]}
+            # {part: [median host ms a step, calls a step]}
+            run["host_parts_ms"] = {
+                k: [float(np.median([p.get(k, [0.0, 0])[0] for p in parts])),
+                    parts[0].get(k, [0.0, 0])[1]]
+                for k in sorted({k for p in parts for k in p})}
+        # one more step each under the profiler, in turns: device busy
+        # time and idle share, NCCL's kernels
+        for name in ("plain", "dp", "dp", "plain"):
+            prof = profile_step(lambda: trainers[name].step(batch))
+            runs[name].setdefault("profiled", []).append(None if prof is None
+                else {k: prof[k] for k in ("busy_ms", "span_ms", "idle_share",
+                                           "kernels", "nccl_kernels",
+                                           "nccl_ms")})
+        params = list(trainers["dp"].model.parameters())
+        grads = [p.grad for p in params]
+        flat = torch.cat([g.reshape(-1) for g in grads])
+        runs["dp"].update(
+            allreduce_alone_ms=time_ms(lambda: allreduce_grads(params)),
+            # its parts: the flatten into one buffer, NCCL on that buffer
+            flatten_alone_ms=time_ms(lambda: torch.cat(
+                [g.reshape(-1) for g in grads])),
+            nccl_alone_ms=time_ms(lambda: dist.all_reduce(flat)),
+            gradient_mib=flat.numel() * 4 / 2**20)
+        # the data-parallel trainer's keyed draws (a generator seeded a
+        # draw) against the one-process trainer's generator, for one
+        # step's 20 sampler draws (2 scales' RPN and R-CNN, the
+        # refinement; 2 images; positives and negatives)
+        high = torch.tensor(1000, device=device)
+        sites = [(stage, s, i, kind) for stage in ("rpn", "rcnn", "refine")
+                 for s in ((0, 1) if stage != "refine" else (1,))
+                 for i in range(TRAIN_BATCH) for kind in ("pos", "neg")]
+        for name in ("plain", "dp"):
+            draws = trainers[name].draws
+            draws = draws.at(0) if name == "dp" else draws
+            t0 = time.perf_counter()
+            for site in sites:
+                draws(site, 256, high)
+            torch.cuda.synchronize()
+            runs[name]["draws_ms_per_step"] = (time.perf_counter() - t0) * 1e3
+        del trainers, params, grads, flat
+        torch.cuda.empty_cache()
+        n_steps = 1 + steps
+        for k, count in TRAIN_PER_STEP.items():
+            if runs["dp"]["launches"][k] != count * n_steps:
+                raise AssertionError(
+                    f"multicard dp: {k} {runs['dp']['launches'][k]} "
+                    f"launches in {n_steps} steps, expected {count} a step")
+        # the eval's shapes are new: no autotuning for one pass
+        torch.backends.cudnn.benchmark = False
+        rank, world = get_dist_info()
+        cfg = main_config()
+        ann, img = make_synthetic_coco3d(os.path.join(tmp, "data"),
+                                         num_volumes=2, hw=128, depth=32,
+                                         seed=7)
+        ds = test_dataset(cfg.data["test"], ann, img, 2)
+        model = build(cfg, device=device, seed=0).model
+        t = time.perf_counter()
+        stats = evaluate_dataset(cfg, model, ds, rank=rank, world=world)
+        eval_s = time.perf_counter() - t
+        if len(stats) != 29 or not all(math.isfinite(v)
+                                       for v in stats.values()):
+            raise AssertionError(f"multicard evaluate_dataset: {stats}")
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(tmp, ignore_errors=True)
+    return dict(runs=runs, eval_stats=stats, eval_s=eval_s,
+                dp_over_plain=runs["dp"]["median_step_s"]
+                / runs["plain"]["median_step_s"])
+
+
+def run_multicard_phase(device):
+    """Phase 17: world 1 under NCCL at full width, then world 2 under
+    gloo at narrow widths, both on the one card, then the entry point
+    `dryrun_multichip(2)` on the card (one data-parallel and one hybrid
+    step, two gloo processes)."""
+    from mrcnn3d_torch.entry import dryrun_multichip
+
+    t = time.perf_counter()
+    world1 = run_multicard_world1(device)
+    world2 = run_multicard_world2(device)
+    t_dry = time.perf_counter()
+    dp, hybrid = dryrun_multichip(2)
+    world2["dryrun"] = dict(loss_dp=dp, loss_hybrid=hybrid,
+                            seconds=time.perf_counter() - t_dry)
+    emit({"phase": "multicard", "ok": True, "world1": world1,
+          "world2": world2, "seconds": time.perf_counter() - t})
+    return world1, world2
+
+
 def _per_call(calls):
     return [{k: c[k] for k in ("name", "valid", "ms", "device_ms",
                                "device_ms_by_kernel", "plain_ms",
@@ -3042,7 +3565,7 @@ def _path_sums(prefix, calls):
 def kernels_line(nms_calls, align_calls, backward_calls, step_calls,
                  main_path, train_calls, train_path, tile_calls, wholevol,
                  learn, learn_calls, serve, serve_calls, variants,
-                 variant_checks, families, family_checks):
+                 variant_checks, families, family_checks, multicard):
     """The {"kernels": [...]} record.  Per kernel: launches from the
     counted run of its path (K1 and K2: the inference main path, with the
     train path's beside them as train_* and the whole volume's as
@@ -3061,7 +3584,10 @@ def kernels_line(nms_calls, align_calls, backward_calls, step_calls,
     (variant_launches_per_step, from its counted full-width runs), and
     for VARIANT_CHECKED the sums over its inference and train steps'
     launches (<type>_step_*, <type>_train_step_*); the same for the
-    families (family_launches_per_step, and FAMILY_CHECKED's sums)."""
+    families (family_launches_per_step, and FAMILY_CHECKED's sums).  The
+    multicard phase's: the data-parallel step's counted launches at
+    world 1 under NCCL (multicard_launches) and each world-2 rank's per
+    run (multicard_world2_launches)."""
     profile = main_path["profile"] or {}
 
     def group_keys(prefix, records, checks, name, train_only=False):
@@ -3081,6 +3607,13 @@ def kernels_line(nms_calls, align_calls, backward_calls, step_calls,
                              train_only),
                 **group_keys("family", families, family_checks, name,
                              train_only)}
+
+    def multicard_keys(name):
+        world1, world2 = multicard
+        return {"multicard_launches": world1["runs"]["dp"]["launches"][name],
+                "multicard_world2_launches": {
+                    run: [r[name] for r in ranks]
+                    for run, ranks in world2["launches"].items()}}
 
     def variant_errs(name, train_only=False):
         parts = ("train",) if train_only else ("inference", "train")
@@ -3137,7 +3670,7 @@ def kernels_line(nms_calls, align_calls, backward_calls, step_calls,
             "serve_launches": serve["launches"][name],
             **{k: v for prefix, c in paths.items()
                for k, v in _path_sums(prefix, c).items()},
-            **variant_keys(name),
+            **variant_keys(name), **multicard_keys(name),
         })
     calls = train_calls["roi_align3d_backward"]
     learn_back = learn_calls["train"]["roi_align3d_backward"]
@@ -3162,6 +3695,7 @@ def kernels_line(nms_calls, align_calls, backward_calls, step_calls,
         "serve_launches": serve["launches"]["roi_align3d_backward"],
         **_path_sums("learn_iter", learn_back),
         **variant_keys("roi_align3d_backward", True),
+        **multicard_keys("roi_align3d_backward"),
     })
     return {"kernels": kernels}
 
@@ -3226,7 +3760,8 @@ def run_learn_phases(device):
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--only",
-                   choices=("train", "learn", "variants", "families"),
+                   choices=("train", "learn", "variants", "families",
+                            "multicard"),
                    help="run phases 1-2 and then only these")
     p.add_argument("--port", default=REPO,
                    help="the checkout whose mrcnn3d_torch is driven")
@@ -3271,6 +3806,8 @@ def main(argv=None):
             run_variants_phase(device)
         elif args.only == "families":
             run_families_phase(device)
+        elif args.only == "multicard":
+            run_multicard_phase(device)
         else:
             run_train_phases(device)
         print(card, flush=True)
@@ -3334,10 +3871,13 @@ def main(argv=None):
 
     families, family_checks = run_families_phase(device)
 
+    multicard = run_multicard_phase(device)
+
     emit(kernels_line(nms_calls, align_calls, backward_calls, step_calls,
                       main_path, train_calls, train_path, tile_calls,
                       wholevol, learn, learn_calls, serve, serve_calls,
-                      variants, variant_checks, families, family_checks))
+                      variants, variant_checks, families, family_checks,
+                      multicard))
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

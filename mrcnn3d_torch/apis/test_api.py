@@ -1,11 +1,15 @@
 """Inference/eval API (reference tools/test.py + apis/inference.py path).
 
-Counterpart of `mrcnn3d/apis/test_api.py` on one card.  Whole volumes
-run through `entry.Flagship.simple_test`, whose anchor sets are cached
-per input shape (the JAX package caches a jitted program per shape);
-detections flow through the patch->global json writers and the 29-stat
-3-D COCO evaluator.  The rank-strided shards and their all-gather
-(`allgather_entries`) are ROADMAP Queue A item 10.
+Counterpart of `mrcnn3d/apis/test_api.py`.  Whole volumes run through
+`entry.Flagship.simple_test`, whose anchor sets are cached per input
+shape (the JAX package caches a jitted program per shape); detections
+flow through the patch->global json writers and the 29-stat 3-D COCO
+evaluator.  With world > 1 each rank runs its rank-strided shard and
+the per-image results are all-gathered back into the dataset's order
+(`gather_shards`) before the patch merge and the scoring: every rank
+scores what one process would, and returns the full dataset's stats.
+(The JAX package gathers the json entries, `allgather_entries`, and
+merges after; one gather of the results does both jobs here.)
 
 Masks: where the JAX package pastes each detection's mask into a full
 (D, H, W) volume, `run_inference` returns the box-extent carrier
@@ -26,8 +30,6 @@ from ..eval.masks import get_box_masks_3d, segm_entries
 from ..eval.results import results2json3d
 
 logger = logging.getLogger("mrcnn3d_torch")
-
-MULTI_CARD = "sharded evaluation (world > 1) is ROADMAP Queue A item 10"
 
 
 class InferenceRunner:
@@ -89,13 +91,13 @@ def load_detector(cfg, work_dir, device=None, dtype=torch.float32):
 def run_inference(cfg, model, dataset, progress=True, rank=0, world=1):
     """Returns (per-image per-class results, img_infos[, per-image
     per-class mask carriers]).  model: the port's detector (its weights
-    loaded), on the device it runs on."""
-    if world != 1:
-        raise NotImplementedError(MULTI_CARD)
+    loaded), on the device it runs on.  rank/world: this rank's shard,
+    the images idx % world == rank (reference eval_hooks.py:111-149),
+    which `gather_shards` puts back in the dataset's order."""
     runner = InferenceRunner(cfg, model)
     num_classes = model.num_classes
     results, infos, segms = [], [], []
-    for idx in range(len(dataset)):
+    for idx in range(rank, len(dataset), world):
         sample = dataset.prepare_test(idx)
         out = runner(sample)
         dets, labels, valid = out[:3]
@@ -120,16 +122,30 @@ def run_inference(cfg, model, dataset, progress=True, rank=0, world=1):
     return results, infos
 
 
+def gather_shards(items, world):
+    """The per-image lists of `run_inference`'s rank-strided shards
+    (image idx on rank idx % world), all-gathered and put back in the
+    dataset's order; `items` itself when world is 1."""
+    if world == 1:
+        return items
+    parts = [None] * world
+    torch.distributed.all_gather_object(parts, items)
+    n = sum(len(p) for p in parts)
+    return [parts[i % world][i // world] for i in range(n)]
+
+
 def evaluate_dataset(cfg, model, dataset, iou_type="bbox", rank=0, world=1):
     """In-loop / offline evaluation: 29-stat 3-D COCO summary.
 
     iou_type 'segm' requires the model's mask path (test_cfg
     return_bbox_only=False); detections are scored with voxel IoU
-    against lazily-loaded gt masks.
+    against lazily-loaded gt masks.  With world > 1 each rank runs its
+    shard and the results are all-gathered before the patch merge and
+    the scoring: every rank returns the same full-dataset stats.
     """
-    if world != 1:
-        raise NotImplementedError(MULTI_CARD)
-    out = run_inference(cfg, model, dataset, progress=False)
+    out = run_inference(cfg, model, dataset, progress=False, rank=rank,
+                        world=world)
+    out = [gather_shards(items, world) for items in out]
     if len(out) == 3 and iou_type == "segm":
         results, infos, segms = out
         entries = []

@@ -1,12 +1,13 @@
 """Training API -- the reference's train_detector/Runner stack as one loop.
 
-Counterpart of `mrcnn3d/apis/train_api.py` on one card: epoch loop,
-per-iteration train step (`entry.build_trainer`), text logging,
-checkpoint interval, optional in-loop validation (`evaluate_dataset`),
-the LR schedule, resume from the work dir's newest checkpoint, and a
-checkpoint-and-stop on SIGTERM / SIGINT.  The data-parallel mesh and the
-multi-process branches are ROADMAP Queue A item 10: asking for them
-raises.
+Counterpart of `mrcnn3d/apis/train_api.py`: epoch loop, per-iteration
+train step (`entry.build_trainer`), text logging, checkpoint interval,
+optional in-loop validation (`evaluate_dataset`), the LR schedule,
+resume from the work dir's newest checkpoint, and a checkpoint-and-stop
+on SIGTERM / SIGINT.  Under a process group (`parallel.mesh.init_dist`,
+one process a card) with a mesh, the step is data-parallel: the global
+batch is imgs_per_gpu times the mesh's data size, each rank loads its
+rank-strided shard of every epoch, and validation runs sharded.
 """
 from __future__ import annotations
 
@@ -20,11 +21,9 @@ import torch
 
 from ..data.loader import Prefetcher
 from ..entry import build_trainer
+from ..parallel.mesh import Mesh, get_dist_info, make_mesh
 from ..train import checkpoint as ckpt
 from ..utils.device import resolve_device
-
-MULTI_CARD = ("data-parallel and multi-process training are ROADMAP Queue A "
-              "item 10; the port trains on one card")
 
 
 def get_root_logger(log_level=logging.INFO):
@@ -123,17 +122,21 @@ def train_detector(cfg, dataset, work_dir=None, seed=0, validate=False,
     """Main entry (reference tools/train.py -> apis/train.py path).
 
     device: the card unless "cpu"; the step runs in float32, as the JAX
-    package's does.  profile_steps: (start, stop) iteration
+    package's does.  mesh: a `parallel.mesh.Mesh`, "auto" (the world's
+    1-D mesh when it has more than one rank) or None (one process).
+    profile_steps: (start, stop) iteration
     bounds of a torch.profiler trace written to <work_dir>/profile.
     stats: optional dict, filled with iters (this run's), seconds (the
     loop's wall time), loader_wait_s (wall time spent waiting for the
     next batch), losses (the total loss of each iteration) and
     first_step_s.  Returns the train state (`train.step.TrainState`).
     """
-    dist = torch.distributed
-    if mesh is not None or (dist.is_available() and dist.is_initialized()
-                            and dist.get_world_size() > 1):
-        raise NotImplementedError(MULTI_CARD)
+    rank, world = get_dist_info()
+    if mesh == "auto":
+        mesh = make_mesh() if world > 1 else None
+    if world > 1 and not isinstance(mesh, Mesh):
+        raise ValueError("multi-process training needs a mesh "
+                         "(parallel.mesh.make_mesh, or mesh='auto')")
     logger = get_root_logger()
     set_random_seed(seed)
     device = resolve_device(device)
@@ -143,10 +146,16 @@ def train_detector(cfg, dataset, work_dir=None, seed=0, validate=False,
     # checkpoints and returns at the next step boundary
     with _StopOnSignal() as stop:
         shapes = train_shapes(cfg, dataset)
-        batch_size = cfg.data.get("imgs_per_gpu", 1)
-        iters_per_epoch = max(len(dataset) // batch_size, 1)
+        # each rank steps on imgs_per_gpu rows of the global batch
+        per_rank = cfg.data.get("imgs_per_gpu", 1)
+        n_data, data_rank = 1, 0
+        if mesh is not None:
+            n_data, data_rank = mesh.n_data, mesh.data_rank
+            logger.info("data-parallel mesh: %d x %d ranks", mesh.n_data,
+                        mesh.n_depth)
+        iters_per_epoch = max(len(dataset) // (per_rank * n_data), 1)
         trainer = build_trainer(cfg, device=device, seed=seed,
-                                iters_per_epoch=iters_per_epoch)
+                                iters_per_epoch=iters_per_epoch, mesh=mesh)
         state = trainer.state
         n_params = sum(p.numel() for p in state.model.parameters())
         logger.info("model built: %.1fM params; crops %s", n_params / 1e6,
@@ -196,7 +205,8 @@ def train_detector(cfg, dataset, work_dir=None, seed=0, validate=False,
 
         for epoch in range(it // iters_per_epoch, total_epochs):
             loader = Prefetcher(
-                dataset, batch_size, epoch=epoch, shuffle=True, seed=seed,
+                dataset, per_rank, epoch=epoch, shuffle=True, seed=seed,
+                rank=data_rank, world=n_data,
                 num_workers=cfg.data.get("workers_per_gpu", 4),
                 mode=cfg.data.get("loader_mode", "thread"), device=device,
             )
@@ -250,7 +260,10 @@ def train_detector(cfg, dataset, work_dir=None, seed=0, validate=False,
             ):
                 from .test_api import evaluate_dataset
 
-                stats_e = evaluate_dataset(cfg, state.model, val_dataset)
+                # the rank-strided validation shard, all-gathered before
+                # scoring (reference eval_hooks.py:111-149)
+                stats_e = evaluate_dataset(cfg, state.model, val_dataset,
+                                           rank=rank, world=world)
                 logger.info("eval @ epoch %d: %s", epoch, stats_e)
         ckpt.save(manager, state, it)
         return finish("training done")

@@ -19,11 +19,13 @@ sampler takes its integers from a `draws` source: a callable
 `draws(site, n, high) -> (n,) int64 tensor in [0, high)` on `high`'s
 device, where `site` names the draw (stage, scale, image, "pos"/"neg")
 and `high` is a 0-d int64 tensor.  `TorchDraws` (the default) takes them
-from an explicit `torch.Generator`; the tests pass a source that replays
-the JAX package's key tree.
+from an explicit `torch.Generator`; `KeyedDraws` seeds one per draw from
+(seed, step, site), which multi-process training uses; the tests pass a
+source that replays the JAX package's key tree.
 """
 from __future__ import annotations
 
+import hashlib
 from typing import NamedTuple
 
 import torch
@@ -43,6 +45,30 @@ class TorchDraws:
         r = torch.randint(0, 2**62, (n,), generator=self.generator,
                           device=self.generator.device)
         return r.to(high.device) % high
+
+
+class KeyedDraws:
+    """The port's counterpart of JAX's key tree: each draw comes from a
+    generator on `high`'s device seeded from (seed, step, site), so a
+    draw depends on its site (stage, scale, global image index, "pos" |
+    "neg") and not on the order of the calls.  N ranks, each sampling
+    its images at their global indices, then draw what one process draws
+    over the global batch.  `at(step)` binds the step."""
+
+    def __init__(self, seed, step=0):
+        self.seed = seed
+        self.step = step
+
+    def at(self, step):
+        return KeyedDraws(self.seed, step)
+
+    def __call__(self, site, n, high):
+        key = repr((self.seed, self.step) + tuple(site)).encode()
+        gen = torch.Generator(device=high.device).manual_seed(
+            int.from_bytes(hashlib.blake2b(key, digest_size=8).digest(),
+                           "little") >> 1)
+        r = torch.randint(0, 2**62, (n,), generator=gen, device=high.device)
+        return r % high
 
 
 def _stable_order(flags):

@@ -64,6 +64,7 @@ from ..ops.losses import (
 from ..ops.nms3d import nms_3d_mask_segments, sort_desc, top_kept
 from ..ops.resize3d import jax_resize
 from ..ops.roi_align3d import multi_level_roi_align_3d
+from ..core.reduce import global_sum
 
 RPN_MEANS = (0.0,) * 6
 RPN_STDS = (1.0,) * 6
@@ -406,11 +407,12 @@ def bbox2result3d(dets, labels, valid, num_classes):
 
 
 def rpn_loss(cls_outs, reg_outs, anchor_set, gt_boxes, gt_valid, draws,
-             site, cfg_rpn, suffix="", means=RPN_MEANS, stds=RPN_STDS):
+             site, cfg_rpn, suffix="", means=RPN_MEANS, stds=RPN_STDS,
+             offset=0):
     """RPN cls and reg loss over the flat multi-level anchors (reference
     anchor_head_3d.py:127-230; per-level sums with one avg_factor are one
     flat sum).  cls_outs[l] (B, A, d, h, w); reg_outs[l] (B, A*6, d, h,
-    w); each image samples at site + (image,)."""
+    w); image i samples at site + (offset + i,), its global index."""
     b = cls_outs[0].shape[0]
     cls_flat = torch.cat(
         [c.permute(0, 2, 3, 4, 1).reshape(b, -1) for c in cls_outs], 1)
@@ -419,12 +421,13 @@ def rpn_loss(cls_outs, reg_outs, anchor_set, gt_boxes, gt_valid, draws,
     anchors = torch.cat(list(anchor_set.anchors))
     inside = torch.cat(list(anchor_set.inside))
     per_image = [
-        anchor_target_single(draws, site + (i,), anchors, inside,
+        anchor_target_single(draws, site + (offset + i,), anchors, inside,
                              gt_boxes[i], gt_valid[i], cfg_rpn, means, stds)
         for i in range(b)
     ]
     tgt = {k: torch.stack([t[k] for t in per_image]) for k in per_image[0]}
-    num_total = (tgt["num_pos"].sum() + tgt["num_neg"].sum()).float()
+    num_total = global_sum(
+        (tgt["num_pos"].sum() + tgt["num_neg"].sum()).float())
     loss_cls = weighted_binary_cross_entropy(
         cls_flat.reshape(-1), tgt["labels"].reshape(-1),
         tgt["label_weights"].reshape(-1), num_total)
@@ -454,8 +457,10 @@ def bbox_stage_loss(cls_score, bbox_pred, samples, num_classes, pos_weight,
     pw = 1.0 if pos_weight <= 0 else float(pos_weight)
     label_weights = torch.where(
         roi_valid, torch.where(is_pos, pw, 1.0), 0.0)
-    avg_cls = torch.clamp((label_weights > 0).sum(), min=1).float()
-    avg_reg = (samples.pos_count.sum() + samples.neg_count.sum()).float()
+    avg_cls = torch.clamp(global_sum((label_weights > 0).sum()),
+                          min=1).float()
+    avg_reg = global_sum(
+        (samples.pos_count.sum() + samples.neg_count.sum()).float())
     return {
         f"loss_cls{suffix}": weighted_cross_entropy(
             cls_score, labels, label_weights, avg_cls),
@@ -495,11 +500,11 @@ def _mask_branch_loss(feats, samples, gt_masks, mask_roi_cfg, rcnn_cfg, fwd,
 
 
 def _sample_batch(draws, site, boxes, valid, gt_boxes, gt_valid, gt_labels,
-                  rcnn_cfg, means, stds):
+                  rcnn_cfg, means, stds, offset=0):
     """sample_rcnn_single per image, stacked; image i samples at
-    site + (i,)."""
+    site + (offset + i,), its index in the global batch."""
     return stack_samples([
-        sample_rcnn_single(draws, site + (i,), boxes[i], valid[i],
+        sample_rcnn_single(draws, site + (offset + i,), boxes[i], valid[i],
                            gt_boxes[i], gt_valid[i], gt_labels[i], rcnn_cfg,
                            means, stds)
         for i in range(boxes.shape[0])
@@ -522,7 +527,7 @@ def _parcellation_loss(parcel_all, samples_s, batch, pos_weight):
         ).reshape(-1))
     logits = torch.cat(parcel_all)
     regions, weights = torch.cat(regions), torch.cat(weights)
-    avg = torch.clamp((weights > 0).sum(), min=1).float()
+    avg = torch.clamp(global_sum((weights > 0).sum()), min=1).float()
     return {
         "loss_parcellation_cls": weighted_cross_entropy(
             logits, regions, weights, avg),
@@ -530,7 +535,8 @@ def _parcellation_loss(parcel_all, samples_s, batch, pos_weight):
     }
 
 
-def forward_train(model, batch, cfg, anchor_sets, draws, mark=None):
+def forward_train(model, batch, cfg, anchor_sets, draws, mark=None,
+                  offset=0):
     """The training forward (`mrcnn3d/detectors/pipeline.py`
     forward_train, its 3-D two-stage branch, :528-820): each scale's RPN
     losses (suffixed _2, _3); without a bbox head, nothing more.  Else
@@ -546,9 +552,15 @@ def forward_train(model, batch, cfg, anchor_sets, draws, mark=None):
     scale, gt_masks (B, G, D, H, W) at 1.0x with a mask head and
     gt_bregions (B, G) with a parcellation head.  draws: the samplers'
     integer source (`core.targets`); sites are ("rpn" | "rcnn", scale,
-    image) and ("refine", 1, image).  mark: optional callable, called
-    with a stage name after each stage.  Returns (total, loss dict):
-    total is the sum of the entries whose key contains "loss".
+    image) and ("refine", 1, image), image the global index: `offset`
+    (the rows of the ranks before this one) plus the local one.  Under
+    a process group of more than one rank the caller enters
+    `core.reduce.loss_group` (`train.step.train_step` does): under the
+    data group every normalizer counts over the global batch, under
+    `loss_group(None)` over this rank's rows; outside one it raises.
+    mark: optional callable, called with a stage name after each
+    stage.  Returns (total, loss dict): total is the sum of the entries
+    whose key contains "loss".
     """
     mark = mark or _no_mark
     if model.single_stage:
@@ -556,7 +568,7 @@ def forward_train(model, batch, cfg, anchor_sets, draws, mark=None):
                                           mark)
     if model.cascade_stages > 0:
         return cascade_forward_train(model, batch, cfg, anchor_sets, draws,
-                                     mark)
+                                     mark, offset)
     train_cfg = cfg.train_cfg
     rcnn_cfg = train_cfg["rcnn"]
     nc = model.num_classes
@@ -580,7 +592,7 @@ def forward_train(model, batch, cfg, anchor_sets, draws, mark=None):
         reg_outs = [o[1] for o in rpn_outs]
         losses.update(rpn_loss(cls_outs, reg_outs, anchor_sets[s], gtb, gtv,
                                draws, ("rpn", s), train_cfg["rpn"], sfx,
-                               rpn_means, rpn_stds))
+                               rpn_means, rpn_stds, offset))
         if not model.with_bbox:
             # RPN-only (reference rpn_3d.py): no proposals, no R-CNN
             mark(f"rpn_targets_{s}")
@@ -594,7 +606,7 @@ def forward_train(model, batch, cfg, anchor_sets, draws, mark=None):
                 means=rpn_means, stds=rpn_stds)
         samples_s.append(_sample_batch(
             draws, ("rcnn", s), pboxes, pvalid, gtb, gtv,
-            batch["gt_labels" + sfx], rcnn_cfg, means, stds))
+            batch["gt_labels" + sfx], rcnn_cfg, means, stds, offset))
         mark(f"rpn_targets_{s}")
     if not model.with_bbox:
         return _total(losses), losses
@@ -636,12 +648,12 @@ def forward_train(model, batch, cfg, anchor_sets, draws, mark=None):
         ref_samples = _sample_batch(
             draws, ("refine", 1), pred_boxes, samples_s[1].roi_valid,
             batch["gt_boxes"], batch["gt_valid"], batch["gt_labels"],
-            rcnn_cfg, means, stds)
+            rcnn_cfg, means, stds, offset)
         rrois, rvalid = flat_rois(ref_samples.rois, ref_samples.roi_valid)
         ref_pred = model.refinement_forward(
             roi_align(feats_s[0], rrois, roi_cfg, rvalid))
-        avg = (ref_samples.pos_count.sum()
-               + ref_samples.neg_count.sum()).float()
+        avg = global_sum((ref_samples.pos_count.sum()
+                          + ref_samples.neg_count.sum()).float())
         losses["loss_refinement_reg"] = weighted_smoothl1(
             _class_deltas(ref_pred, ref_samples.labels.reshape(-1), nc),
             ref_samples.bbox_targets.reshape(-1, 6),
@@ -747,7 +759,7 @@ def single_stage_loss(cls_outs, reg_outs, anchor_set, gt_boxes, gt_valid,
         for i in range(b)
     ]
     tgt = {k: torch.stack([t[k] for t in per_image]) for k in per_image[0]}
-    num_pos = tgt["num_pos"].sum().float()
+    num_pos = global_sum(tgt["num_pos"].sum().float())
     weights = tgt["label_weights"].reshape(-1)
     bin_labels, _ = expand_binary_labels(tgt["labels"].reshape(-1), weights,
                                          c_out)
@@ -945,7 +957,7 @@ def _semantic_loss(sem_logits, gt_seg, sem_cfg):
     keep = (gt != ignore) & (gt >= 0)
     safe = torch.where(keep, gt, 0)
     nll = -torch.gather(logp, 1, safe[:, None])[:, 0]
-    denom = torch.clamp(keep.sum(), min=1).float()
+    denom = torch.clamp(global_sum(keep.sum()), min=1).float()
     return float(sem_cfg.get("loss_weight", 0.2)) * \
         torch.where(keep, nll, 0.0).sum() / denom
 
@@ -971,7 +983,7 @@ def _htc_mask_stage_loss(model, feats, sem_feat, samples, stage, batch,
 
 
 def cascade_forward_train(model, batch, cfg, anchor_sets, draws,
-                          mark=_no_mark):
+                          mark=_no_mark, offset=0):
     """Cascade / HTC training losses (`mrcnn3d/detectors/pipeline.py`
     cascade_forward_train; reference htc.py:156-264): the RPN; per stage
     t, sampling against the previous stage's decoded (detached) boxes
@@ -983,7 +995,8 @@ def cascade_forward_train(model, batch, cfg, anchor_sets, draws,
 
     Draw sites: ("rpn", 0, image), ("cascade", t, image) and, for the
     interleaved re-sample, ("htc_mask", t, image) -- JAX's keys 0, 2 + t
-    and 2 + stages + t of split(rng, 2 + 2 * stages)."""
+    and 2 + stages + t of split(rng, 2 + 2 * stages); image is the
+    global index, `offset` plus the local one."""
     train_cfg = cfg.train_cfg
     stages = model.cascade_stages
     rcnn_cfgs = train_cfg["rcnn"]
@@ -1003,7 +1016,8 @@ def cascade_forward_train(model, batch, cfg, anchor_sets, draws,
         model, imgs, feats, cfg, anchor_sets[0], train_cfg["rpn_proposal"])
     losses = rpn_loss([o[0] for o in outs], [o[1] for o in outs],
                       anchor_sets[0], gtb, gtv, draws, ("rpn", 0),
-                      train_cfg["rpn"], means=rpn_means, stds=rpn_stds)
+                      train_cfg["rpn"], means=rpn_means, stds=rpn_stds,
+                      offset=offset)
     mark("rpn_targets_0")
 
     sem_feat = None
@@ -1017,7 +1031,7 @@ def cascade_forward_train(model, batch, cfg, anchor_sets, draws,
 
     for t, rc in enumerate(rcnn_cfgs[:stages]):
         samples = _sample_batch(draws, ("cascade", t), pboxes, pvalid, gtb,
-                                gtv, gtl, rc, means, stds)
+                                gtv, gtl, rc, means, stds, offset)
         rois, rvalid = flat_rois(samples.rois, samples.roi_valid)
         cls_score, bbox_pred = model.bbox_forward(
             _stage_roi_feats(feats, sem_feat, rois, rvalid, cfg), t)
@@ -1027,9 +1041,9 @@ def cascade_forward_train(model, batch, cfg, anchor_sets, draws,
         pw = 1.0 if pw <= 0 else pw
         lw = torch.where(samples.roi_valid.reshape(-1),
                          torch.where(is_pos, pw, 1.0), 0.0)
-        avg_cls = torch.clamp((lw > 0).sum(), min=1).float()
-        avg_reg = (samples.pos_count.sum()
-                   + samples.neg_count.sum()).float()
+        avg_cls = torch.clamp(global_sum((lw > 0).sum()), min=1).float()
+        avg_reg = global_sum((samples.pos_count.sum()
+                              + samples.neg_count.sum()).float())
         w = float(weights[t])
         losses[f"s{t}.loss_cls"] = w * weighted_cross_entropy(
             cls_score, labels, lw, avg_cls)
@@ -1047,7 +1061,7 @@ def cascade_forward_train(model, batch, cfg, anchor_sets, draws,
             if cfg.model.get("interleaved", True):
                 msamples = _sample_batch(draws, ("htc_mask", t), pboxes,
                                          pvalid, gtb, gtv, gtl, rc, means,
-                                         stds)
+                                         stds, offset)
             losses[f"s{t}.loss_mask"] = w * _htc_mask_stage_loss(
                 model, feats, sem_feat, msamples, t, batch, cfg, rc)
             mark(f"mask_{t}")

@@ -7,6 +7,13 @@
   * isotropic MaxPool3d(3, stride 2, padding 1);
   * pytorch-style Bottleneck (stride on the 3x3x3 conv);
   * frozen BatchNorm.
+
+Depth sharding (`parallel/spatial.py`, the counterpart of
+`mrcnn3d/models/resnet3d.py:306-340`): with `depth_slabs` set, each rank
+of its group runs the backbone on a depth slab of the volume; every conv
+and pool with a depth extent goes through `depth_slabs.apply` (the halo
+exchange), a stage falls back to the whole volume once its depth stops
+dividing the group, and the stage outputs come back whole.
 """
 from __future__ import annotations
 
@@ -41,18 +48,48 @@ class Bottleneck3D(nn.Module):
             else None
         )
 
-    def forward(self, x):
-        identity = x if self.downsample is None else self.downsample(x)
+    def forward(self, x, run=None):
+        """run(op, x): how a conv with a depth extent is applied (the
+        depth slabs' halo exchange); op(x) by default."""
+        run = run or _call
+        identity = x if self.downsample is None else self.downsample[1](
+            run(self.downsample[0], x))
         out = torch.relu(self.bn1(self.conv1(x)))
-        out = torch.relu(self.bn2(self.conv2(out)))
+        out = torch.relu(self.bn2(run(self.conv2, out)))
         out = self.bn3(self.conv3(out))
         return torch.relu(out + identity)
+
+
+def _call(op, x):
+    return op(x)
+
+
+class _Whole:
+    """The backbone's pass when it is not depth-sharded: every
+    activation whole, each op applied as it is (the interface of
+    `parallel.spatial.DepthSlabs`)."""
+
+    @staticmethod
+    def split(x):
+        return x
+
+    @staticmethod
+    def settle(x, op):
+        return x
+
+    @staticmethod
+    def whole(x):
+        return x
+
+    apply = staticmethod(_call)
 
 
 class ResNet3D(nn.Module):
     """Returns the four stage outputs."""
 
     strides = (1, 2, 2, 2)
+    # a `parallel.spatial.DepthSlabs` while the backbone runs depth-sharded
+    depth_slabs = None
 
     def __init__(self, depth=50, base_width=16):
         super().__init__()
@@ -88,11 +125,21 @@ class ResNet3D(nn.Module):
         self.out_channels = [base_width * 4 * 2**i for i in range(4)]
 
     def forward(self, x):
-        x = self.maxpool(torch.relu(self.bn1(self.conv1(x))))
+        """The four stage outputs of `x`; with `depth_slabs` set, each
+        rank of its group runs on its depth slab of `x` (the whole
+        volume on every rank) and the outputs come back whole."""
+        slabs = self.depth_slabs or _Whole
+        x = slabs.split(x)
+        x = torch.relu(self.bn1(slabs.apply(self.conv1, x)))
+        x = slabs.settle(x, self.maxpool)
+        x = slabs.apply(self.maxpool, x)
         outs = []
         for i in range(4):
-            x = getattr(self, f"layer{i + 1}")(x)
-            outs.append(x)
+            layer = getattr(self, f"layer{i + 1}")
+            x = slabs.settle(x, layer[0].conv2)
+            for block in layer:
+                x = block(x, slabs.apply)
+            outs.append(slabs.whole(x))
         return outs
 
     def featmap_sizes(self, shape):

@@ -4,11 +4,16 @@ Same semantics as `mrcnn3d/ops/losses.py` (reference
 mmdet/core/loss/losses.py): `avg_factor` is always passed explicitly and
 computed by the caller from tensors, so no loss needs a host value.
 The losses compute in float32 whatever the dtype of the logits (bf16
-under autocast).
+under autocast).  The normalizers that count over the batch (the mask
+loss's voxels, the accuracy's rows) are summed over the data group of a
+multi-process step (`core.reduce.global_sum`), as the JAX step counts
+them over the global batch.
 """
 from __future__ import annotations
 
 import torch
+
+from ..core.reduce import global_sum
 
 
 def _bce_with_logits(logits, labels):
@@ -70,7 +75,7 @@ def mask_cross_entropy(pred, target, label, valid=None):
         return raw.mean()
     vox = float(raw[0].numel())
     w = valid.float()
-    denom = torch.clamp(w.sum() * vox, min=1.0)
+    denom = torch.clamp(global_sum(w.sum()) * vox, min=1.0)
     return torch.sum(raw * w[:, None, None, None]) / denom
 
 
@@ -79,7 +84,8 @@ def accuracy(logits, target, valid=None):
     if valid is None:
         return 100.0 * correct.mean()
     w = valid.float()
-    return 100.0 * torch.sum(correct * w) / torch.clamp(w.sum(), min=1.0)
+    hits, rows = global_sum(torch.stack([torch.sum(correct * w), w.sum()]))
+    return 100.0 * hits / torch.clamp(rows, min=1.0)
 
 
 def expand_binary_labels(labels, label_weights, label_channels):

@@ -10,6 +10,13 @@ offline protocol, reference tools/test.py:38-73 `double_test`), or with
 and both result sets are merged via the results2json3DMulti path
 (coco_utils.py:480-574) before the global NMS and a single evaluation
 against the 1.0x ground truth.
+
+    torchrun --nproc_per_node=N -m mrcnn3d_torch.tools.test CONFIG \
+        WORK_DIR --launcher pytorch
+
+runs each pass sharded over the N processes (image idx on rank
+idx % N), all-gathers the results in the dataset's order, and rank 0
+writes and scores them.
 """
 from __future__ import annotations
 
@@ -30,6 +37,8 @@ def parse_args(argv=None):
     p.add_argument("--synthetic", action="store_true")
     p.add_argument("--gpu_collect", action="store_true",
                    help="accepted for reference-CLI parity")
+    p.add_argument("--launcher", default="none", choices=("none", "pytorch"),
+                   help="pytorch: shard the passes over torchrun's ranks")
     p.add_argument(
         "--double",
         action="store_true",
@@ -43,14 +52,25 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    from ..apis.test_api import load_detector, run_inference
+    from ..apis.test_api import gather_shards, load_detector, run_inference
     from ..eval.coco_eval3d import CocoEval3D
     from ..eval.masks import segm_entries
     from ..detectors.build import num_scales
     from ..eval.results import results2json3d, results2json3d_multi
     from ..utils.config import Config
 
-    device = resolve(args.device)
+    rank, world = 0, 1
+    if args.launcher == "pytorch":
+        from ..parallel.mesh import init_dist
+
+        try:
+            rank, world, device = init_dist(
+                "pytorch", device=None if args.device == "cuda"
+                else args.device)
+        except RuntimeError as e:
+            raise SystemExit(f"tools.test: {e}") from e
+    else:
+        device = resolve(args.device)
     cfg = Config.fromfile(args.config)
     if "segm" in args.eval:
         # the mask path only runs when bbox-only mode is off
@@ -65,7 +85,7 @@ def main(argv=None):
     if args.synthetic:
         from ..data.synthetic import make_synthetic_coco3d
 
-        root = synthetic_root("test")
+        root = synthetic_root("test" if world == 1 else f"test_rank{rank}")
         ann_file, img_dir = make_synthetic_coco3d(
             root, num_volumes=4, hw=128, depth=32, seed=7
         )
@@ -74,7 +94,11 @@ def main(argv=None):
     scales = num_scales(cfg)
     dataset = test_dataset(te, ann_file, img_dir, scales)
 
-    out = run_inference(cfg, model, dataset)
+    def run(cfg_, ds):
+        out = run_inference(cfg_, model, ds, rank=rank, world=world)
+        return [gather_shards(items, world) for items in out]
+
+    out = run(cfg, dataset)
     results, infos = out[0], out[1]
     segms = out[2] if len(out) > 2 else None
 
@@ -104,8 +128,14 @@ def main(argv=None):
         dataset2 = test_dataset(te2, ann2, img_dir2, scales)
         cfg2 = copy.deepcopy(cfg)
         cfg2["test_cfg"] = cfg2.get("test_cfg2", cfg2["test_cfg"])
-        results2, infos2 = run_inference(cfg2, model, dataset2)[:2]
+        results2, infos2 = run(cfg2, dataset2)[:2]
 
+    if args.launcher == "pytorch":
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
+    if rank != 0:
+        return
     if args.out:
         with open(args.out, "wb") as f:
             pickle.dump(

@@ -5,8 +5,12 @@
     python -m mrcnn3d_torch.tools.train configs/mask_rcnn_3d_2scales.py \
         --synthetic --max-iters 50   # smoke run on generated data
 
-Trains on one card (`--device cpu` on the CPU).  --gpus above 1 and a
---launcher are ROADMAP Queue A item 10 and raise.
+    torchrun --nproc_per_node=N -m mrcnn3d_torch.tools.train \
+        configs/mask_rcnn_3d_2scales.py --launcher pytorch
+
+One process drives one card (`--device cpu` the CPU).  Under torchrun
+(or `mrcnn3d_torch/tools/dist_train.sh`) with --launcher pytorch the N
+processes train data-parallel: NCCL on the cards, gloo on the CPU.
 """
 from __future__ import annotations
 
@@ -26,10 +30,12 @@ def parse_args(argv=None):
         "--validate", action="store_true", help="eval every k epochs"
     )
     p.add_argument("--gpus", type=int, default=1,
-                   help="cards to train on (one: several are A10)")
+                   help="cards to train on: one a process, so more than "
+                        "one needs torchrun and --launcher pytorch")
     p.add_argument("--seed", type=int, default=None)
     p.add_argument("--launcher", default="none",
-                   help="none (multi-process launchers are A10)")
+                   choices=("none", "pytorch"),
+                   help="pytorch: join torchrun's process group")
     p.add_argument("--local_rank", type=int, default=0)
     p.add_argument("--max-iters", type=int, default=None,
                    help="stop after N iterations (smoke runs)")
@@ -41,14 +47,29 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    from ..apis.train_api import MULTI_CARD, train_detector
+    from ..apis.train_api import train_detector
     from ..data.coco3d import Coco3DDataset
     from ..utils.config import Config
     from .common import train_dataset_class
 
-    if args.launcher not in ("none", None) or args.gpus > 1:
-        raise SystemExit(MULTI_CARD)
-    device = resolve(args.device)
+    rank, world = 0, 1
+    if args.launcher == "pytorch":
+        from ..parallel.mesh import init_dist
+
+        try:
+            rank, world, device = init_dist(
+                "pytorch", device=None if args.device == "cuda"
+                else args.device)
+        except RuntimeError as e:
+            raise SystemExit(f"tools.train: {e}") from e
+    elif args.gpus > 1:
+        raise SystemExit(
+            f"tools.train: --gpus {args.gpus} needs one process a card: "
+            f"torchrun --nproc_per_node={args.gpus} -m "
+            "mrcnn3d_torch.tools.train CONFIG --launcher pytorch "
+            "(mrcnn3d_torch/tools/dist_train.sh)")
+    else:
+        device = resolve(args.device)
     cfg = Config.fromfile(args.config)
     if args.work_dir:
         cfg.work_dir = args.work_dir
@@ -60,9 +81,10 @@ def main(argv=None):
     if args.synthetic:
         from ..data.synthetic import make_synthetic_coco3d
 
+        # one copy a rank: ranks that wrote one set would race
         ann_file, img_dir = make_synthetic_coco3d(
-            synthetic_root("train"), num_volumes=8, hw=128, depth=32, seed=0
-        )
+            synthetic_root("train" if world == 1 else f"train_rank{rank}"),
+            num_volumes=8, hw=128, depth=32, seed=0)
     else:
         ann_file, img_dir = tr["ann_file"], tr["img_prefix"]
 
@@ -110,8 +132,13 @@ def main(argv=None):
         validate=args.validate,
         val_dataset=val_dataset,
         max_iters=args.max_iters,
+        mesh="auto",
         device=device,
     )
+    if args.launcher == "pytorch":
+        import torch.distributed as dist
+
+        dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -6,7 +6,8 @@ model's state_dict (parameters and frozen-BN statistics), the
 optimizer's (momentum buffers) and the step, which also fixes the
 schedule.  `max_to_keep` bounds the directories kept; `restore` puts a
 state back in full, `restore_params` reads the model's tensors alone,
-for serving.
+for serving.  In a process group rank 0 writes and every rank waits
+for it at a barrier; every rank restores.
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ import os
 import shutil
 
 import torch
+
+from ..parallel.mesh import get_dist_info, process_barrier
 
 _FILE = "state.pt"
 
@@ -57,9 +60,11 @@ def save(manager, state, step=None):
     """Saves a train state (`train.step.TrainState`) at `step` (its own
     step by default)."""
     step = state.step if step is None else step
-    manager.save(step, dict(model=state.model.state_dict(),
-                            optimizer=state.optimizer.state_dict(),
-                            step=int(state.step)))
+    if get_dist_info()[0] == 0:
+        manager.save(step, dict(model=state.model.state_dict(),
+                                optimizer=state.optimizer.state_dict(),
+                                step=int(state.step)))
+    process_barrier(f"checkpoint {step}")
 
 
 def restore(manager, state, step=None):

@@ -268,12 +268,26 @@ def test_train_detector_sigterm_checkpoints(tmp_path, monkeypatch):
     assert signal.getsignal(signal.SIGTERM) is before
 
 
-def test_multi_card_asks_raise(tmp_path):
+def test_mesh_auto_in_one_process_trains_at_world_1(tmp_path):
+    """mesh="auto" outside a process group is the one-process step."""
     cfg, ds = _train_set(tmp_path / "data")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        train_api.train_detector(cfg, ds, mesh="auto", device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        test_api.run_inference(cfg, None, ds, world=2)
+    cfg.data["workers_per_gpu"] = 1
+    state = train_api.train_detector(cfg, ds, work_dir=str(tmp_path / "wd"),
+                                     max_iters=1, mesh="auto", device="cpu")
+    assert state.step == 1 and state.mesh is None
+
+
+def test_train_launcher_needs_torchrun(monkeypatch):
+    """--launcher pytorch without torchrun's environment stops with a
+    message that names what is missing and how to launch."""
+    from mrcnn3d_torch.tools import train as train_tool
+
+    for k in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+              "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(SystemExit, match="torchrun.*RANK"):
+        train_tool.main(["configs/mask_rcnn_3d_2scales.py", "--launcher",
+                         "pytorch", "--device", "cpu"])
 
 
 def test_train_shapes_probe_advances_the_crops(tmp_path):

@@ -1,6 +1,6 @@
 """The port stands alone: it imports neither JAX nor the JAX package
-(its training, whole-volume, evaluation, data, API and tool modules
-included), every 3-D two-stage variant and every single-stage and
+(its training, whole-volume, evaluation, data, API, tool and parallel
+modules included), every 3-D two-stage variant and every single-stage and
 cascade family builds and takes a CPU step and an inference without
 them, the 2-D and SSD types (not yet ported) raise naming their ROADMAP
 item, and its entry points never fall back to the CPU on their
@@ -29,7 +29,7 @@ _SCRIPT = textwrap.dedent(
     det = build(device="cpu")
     assert det.model.num_scales == 2 and det.model.with_refinement_mask
     assert next(det.model.parameters()).device.type == "cpu"
-    for name in ("core.targets", "ops.losses", "train.optim", "train.step",
+    for name in ("core.targets", "core.reduce", "ops.losses", "train.optim", "train.step",
                  "train.checkpoint", "native", "ops.resize3d",
                  "data.transforms", "eval.masks", "eval.results",
                  "eval.coco_eval3d", "apis.tiled", "apis.inference",
@@ -37,7 +37,8 @@ _SCRIPT = textwrap.dedent(
                  "data.loader", "apis.train_api", "apis.test_api",
                  "apis.serve", "tools.train", "tools.test",
                  "tools.coco_eval", "tools.serve", "tools.test_images",
-                 "tools.learning_bench"):
+                 "tools.learning_bench", "parallel.mesh", "parallel.batched",
+                 "parallel.spatial", "parallel.launch"):
         assert "mrcnn3d_torch." + name in names, name
     import chip_smoke
     from mrcnn3d_torch.entry import build_trainer
