@@ -92,11 +92,15 @@ Phases, each printing one JSON line with its seconds:
                  plain version (as in phase 9); the trained detector's
                  gradients on each batch of the loader's first epoch (the
                  12 train volumes) through the kernels against through
-                 the plain versions on the card, from the same draws
-                 (samples equal, losses and each parameter's gradient
-                 within 2e-3 of its largest; the plain pass takes the
-                 kernel pass's relu branch at ties, each within 1e-4 of
-                 its call's largest input); then the
+                 the plain versions on the card, from the same draws,
+                 cuDNN pinned to its deterministic algorithms in both
+                 passes (samples equal, losses and each parameter's
+                 gradient within 2e-3 of its largest; every K2 forward
+                 launch of the kernel pass within K2's gate of its plain
+                 version; the plain pass takes the kernel pass's relu
+                 branch at ties, each within 1e-4 of its call's largest
+                 input; a failure names the kernel whose plain version
+                 alone reproduces it); then the
                  double_test + segm evaluation of the checkpoint (counted
                  the same way): 29 finite stats each, and the launches of
                  its last volume pair (pass 2, a 576x576x108 twin) each
@@ -166,20 +170,51 @@ Phases, each printing one JSON line with its seconds:
                  show K1 and K2 (and K2's backward in the step); then
                  entry.dryrun_multichip(2) on the card (a data-parallel
                  and a hybrid step, two gloo processes).
+ 18. extras   -- the rest of the 3-D side.  (a) The flagship config with
+                 each backbone of BACKBONES (ResNet3D-18, -34, -101,
+                 -152, ResNeXt3D-50 at groups 32 and base width 4,
+                 UNet3D at base 16), (b) with the R-CNN sampler
+                 OHEMSampler, (c) test-time augmentation of single-scale
+                 MaskRCNN3D at depth 50 over three views (identity,
+                 W-flip, 1.5x by ops/resize3d.py): each at the narrow
+                 widths on the card against the CPU (inference as in
+                 phase 15, one train step as in phase 7, every sample
+                 index equal), then at full width, bf16, budgets 2000,
+                 masks on, R-CNN score threshold 0 (the mask stage at
+                 the full budget whatever random weights score):
+                 inference on the headline geometry (TTA: the
+                 three views of 64x512x512) and the train step on
+                 bench.py's (OHEM: its train step only, one timed), 1
+                 warm-up and 3 timed, peak memory, the counters zeroed
+                 just before and read just after (EXTRAS_LAUNCHES a
+                 step); the launches of one inference and one train step
+                 of each backbone and of one TTA call each against its
+                 plain version and timed alone.  (d) The
+                 host modules on the card's outputs, as a check that
+                 they run: eval_map_3d of the TTA detections,
+                 eval_recalls_3d of RPN3D's proposals, soft_nms_3d on the
+                 TTA pre-NMS rows, roi_pool_3d on a full-width FPN level
+                 against its numpy oracle (exactly).
 Then the kernels line, the card line and, last, the result line
 {"ok": true, "device": {...}}.  Any failure raises: the exit code is then
 not 0 and no result line is printed.
 
-    python3 chip_smoke.py --only train|learn|variants|families|multicard \
-        [--port DIR]
+    python3 chip_smoke.py \
+        --only train|learn|variants|families|multicard|extras [--port DIR]
 
 runs phases 1-2 and then only phases 8-9 (train), 13-14 (learn and
-serve), 15 (variants), 16 (families) or 17 (multicard), and prints no
-result line:
+serve), 15 (variants), 16 (families), 17 (multicard) or 18 (extras), and
+prints no result line:
 the way to set two versions of the port side by side on one card.
 --port takes another checkout (an older commit unpacked with git
 archive) whose mrcnn3d_torch these phases then drive; run it from this
 one, in turns with --port left out.
+
+    python3 chip_smoke.py --only learn --learn-states N
+
+also trains N more detectors as phase 13 does, from seeds 2025 on, and
+holds each one's gradients to phase 13's gate (one line each): how near
+trained states come to it.
 """
 from __future__ import annotations
 
@@ -586,6 +621,29 @@ def check_align(gen, det, device):
     return calls
 
 
+def check_align_output(got, want, what):
+    """K2's output `got` against its plain version's `want`: every value
+    within ALIGN_TOL of the dtype, or one bf16 step.  Returns (largest
+    error, tolerance); raises naming `what` otherwise."""
+    import torch
+
+    dtype = want.dtype
+    diff = (got.float() - want.float()).abs()
+    err = float(diff.max()) if diff.numel() else 0.0
+    tol = ALIGN_TOL[str(dtype).split(".")[-1]]
+    ok = diff <= tol
+    if dtype == torch.bfloat16:
+        # both round an f32 sum to bf16: sums that differ in their last
+        # bits may land on neighbouring bf16 values, one step apart
+        _, e = torch.frexp(want.float())
+        ok |= diff <= torch.ldexp(torch.ones_like(diff), e - 8)
+    if not bool(ok.all()):
+        raise AssertionError(
+            f"{what} {dtype}: {int((~ok).sum())} values differ by more "
+            f"than {tol} and one bf16 step; max error {err}")
+    return err, tol
+
+
 def align_case(name, args):
     """K2 against its plain version on one launch's arguments (those of
     `roi_align_3d_cuda`): max error within the dtype's tolerance; the rois
@@ -608,20 +666,7 @@ def align_case(name, args):
     if paths != geo["paths"]:
         raise AssertionError(f"K2 {name}: paths {paths}, the window rule "
                              f"gives {geo['paths']}")
-    diff = (got.float() - want.float()).abs()
-    err = float(diff.max()) if diff.numel() else 0.0
-    tol = ALIGN_TOL[str(dtype).split(".")[-1]]
-    ok = diff <= tol
-    if dtype == torch.bfloat16:
-        # both round an f32 sum to bf16: sums that differ in their last
-        # bits may land on neighbouring bf16 values, one step apart
-        _, e = torch.frexp(want.float())
-        ok |= diff <= torch.ldexp(torch.ones_like(diff), e - 8)
-    if not bool(ok.all()):
-        raise AssertionError(
-            f"K2 {name} {dtype}: {int((~ok).sum())} values differ by more "
-            f"than {tol} and one bf16 step; max error {err}")
-    del diff, ok
+    err, tol = check_align_output(got, want, f"K2 {name}")
     ms = time_ms(lambda: ra.roi_align_3d_cuda(*args))
     dev_ms = device_ms(lambda: ra.roi_align_3d_cuda(*args),
                        KERNEL_CUDA_NAMES["roi_align3d"])
@@ -743,15 +788,15 @@ def small_train_config():
     return narrow_config(main_config(), SMALL_BUDGET)
 
 
-def small_train_batch(seed, batch_size=2, max_gt=4):
-    """numpy training batch of the small shapes (NCDHW volumes): gt
-    boxes inside the volume (the 1.5x twin's scaled by 1.5), the last gt
-    of each image invalid, labels 1, gt masks that fill each box's
-    central part."""
+def small_train_batch(seed, batch_size=2, max_gt=4, shapes=SMALL_SHAPES):
+    """numpy training batch of the small shapes (NCDHW volumes; `shapes`
+    of the two scales): gt boxes inside the volume (the 1.5x twin's
+    scaled by 1.5), the last gt of each image invalid, labels 1, gt masks
+    that fill each box's central part."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
-    (d, h, w), shape2 = SMALL_SHAPES
+    (d, h, w), shape2 = shapes
     b, g = batch_size, max_gt
     xy = rng.uniform(0, 18, (b, g, 2))
     size = rng.uniform(6, 13, (b, g, 2))
@@ -811,6 +856,28 @@ def variant_train_batch(seed, scales, parcel):
         batch["gt_bregions"] = rng.randint(
             0, PARCELLATIONS, batch["gt_labels"].shape).astype(np.int32)
     return batch
+
+
+# the small shapes of UNet3D, whose three poolings and crops need sides
+# divisible by 8
+UNET_SMALL_SHAPES = [(16, 32, 32), (24, 48, 48)]
+# phase 18's backbones: name -> the config's backbone keys (ResNeXt3D
+# takes the JAX defaults, groups 32 and 4 channels a group at 64 planes,
+# its stem width from base_width; UNet3D its base_channels 16)
+BACKBONES = {
+    "ResNet3D-18": dict(type="ResNet3D", depth=18),
+    "ResNet3D-34": dict(type="ResNet3D", depth=34),
+    "ResNet3D-101": dict(type="ResNet3D", depth=101),
+    "ResNet3D-152": dict(type="ResNet3D", depth=152),
+    "ResNeXt3D-50": dict(type="ResNeXt3D", depth=50),
+    "UNet3D": dict(type="UNet3D"),
+}
+
+
+def backbone_recipe(cfg, name):
+    """The config with backbone `name` (BACKBONES), in place."""
+    cfg.model["backbone"].update(BACKBONES[name])
+    return cfg
 
 
 # the single-stage and cascade families and the config each is built from
@@ -1251,7 +1318,8 @@ def small_train_step(device, cfg=None, batch=None):
     times SGD's momentum buffer, as the optimizer applies it (the
     parameter's own rounding would hide it at a step this small).  The
     stem's tensors, per input shape: the max-pool's input and the
-    gradient that reaches the stem conv's output."""
+    gradient that reaches the stem conv's output (UNet3D: the input of
+    each of its 2x2x2 max-pools, and no stem conv)."""
     import torch
 
     from mrcnn3d_torch.entry import build_trainer
@@ -1262,7 +1330,9 @@ def small_train_step(device, cfg=None, batch=None):
     batch = {k: torch.from_numpy(v).to(device)
              for k, v in (batch or small_train_batch(3)).items()}
     backbone = trainer.model.backbone
-    stem = {"pool_in": {}, "conv_grad": {}}
+    pool = getattr(backbone, "maxpool", None) or backbone.pool
+    stem = {"pool_in": {}, "conv_grad": {},
+            "pool": (pool.kernel_size, pool.stride, pool.padding)}
 
     def on_conv(mod, inp, out):
         key = tuple(out.shape)
@@ -1272,8 +1342,9 @@ def small_train_step(device, cfg=None, batch=None):
     def on_pool(mod, inp, out):
         stem["pool_in"][tuple(inp[0].shape)] = inp[0].detach().cpu()
 
-    hooks = [backbone.conv1.register_forward_hook(on_conv),
-             backbone.maxpool.register_forward_hook(on_pool)]
+    hooks = [pool.register_forward_hook(on_pool)]
+    if hasattr(backbone, "conv1"):
+        hooks.append(backbone.conv1.register_forward_hook(on_conv))
     with SampleRecorder() as rec:
         losses = trainer.step(batch)
     for h in hooks:
@@ -1299,16 +1370,18 @@ def stem_divergence(gpu_stem, cpu_stem):
     out = {}
     for shape, x_cpu in cpu_stem["pool_in"].items():
         x_gpu = gpu_stem["pool_in"][shape]
-        _, i_cpu = F.max_pool3d(x_cpu, 3, 2, 1, return_indices=True)
-        _, i_gpu = F.max_pool3d(x_gpu, 3, 2, 1, return_indices=True)
-        g_cpu = cpu_stem["conv_grad"][shape]
-        g_gpu = gpu_stem["conv_grad"][shape]
-        out["x".join(map(str, shape[2:]))] = dict(
+        _, i_cpu = F.max_pool3d(x_cpu, *cpu_stem["pool"],
+                                return_indices=True)
+        _, i_gpu = F.max_pool3d(x_gpu, *cpu_stem["pool"],
+                                return_indices=True)
+        rec = out["x".join(map(str, shape[2:]))] = dict(
             pool_in_max_diff=float((x_gpu - x_cpu).abs().max()),
-            argmax_flips=int((i_gpu != i_cpu).sum()), windows=i_cpu.numel(),
-            conv_grad_max_diff=float((g_gpu - g_cpu).abs().max()),
-            conv_grad_max=float(g_cpu.abs().max()),
-        )
+            argmax_flips=int((i_gpu != i_cpu).sum()), windows=i_cpu.numel())
+        if shape in cpu_stem["conv_grad"]:
+            g_cpu = cpu_stem["conv_grad"][shape]
+            g_gpu = gpu_stem["conv_grad"][shape]
+            rec.update(conv_grad_max_diff=float((g_gpu - g_cpu).abs().max()),
+                       conv_grad_max=float(g_cpu.abs().max()))
     return out
 
 
@@ -1321,8 +1394,15 @@ SAMPLE_FLOATS = ("bbox_targets", "rois")
 # follows each device's convolution rounding: a flipped window routes its
 # gradient to the neighbouring voxel, which moves the stem conv's weight
 # gradient by about 1% of its largest (1.0% on the narrow config).  The
-# phase reports the flips and the gradient they move (`stem_divergence`)
-UPDATE_TOL = {"backbone.conv1.weight": 2e-2}
+# phase reports the flips and the gradient they move (`stem_divergence`).
+# UNet3D's encoder convs above its last max-pool sit under its three
+# 2x2x2 max-pools the same way (the narrow UNet3D's enc0_conv0 and
+# enc1_conv0 weights: 2.2e-3 and 3.4e-3 of their largest, measured on one
+# H100; `stem_divergence` reports each pool's flips)
+UPDATE_TOL = {"backbone.conv1.weight": 2e-2,
+              **dict.fromkeys((f"backbone.enc{i}_conv{j}.{k}"
+                               for i in range(3) for j in (0, 1)
+                               for k in ("weight", "bias")), 2e-2)}
 
 
 def compare_samples(got, want, what):
@@ -2150,13 +2230,17 @@ def check_first_batch(cfg, data, device):
 
 
 class PlainKernels:
-    """Within the block, the kernels' wrappers run their plain PyTorch
-    versions (on the card's tensors, uncounted)."""
+    """Within the block, the kernels' wrappers (those named in `wrappers`,
+    all by default) run their plain PyTorch versions (on the card's
+    tensors, uncounted)."""
 
     SWAPS = (("nms3d", "greedy_scan_cuda", "greedy_scan_plain"),
              ("roi_align3d", "roi_align_3d_cuda", "roi_align_3d_plain"),
              ("roi_align3d", "roi_align_3d_backward_cuda",
               "roi_align_3d_backward_plain"))
+
+    def __init__(self, wrappers=None):
+        self.wrappers = wrappers
 
     def __enter__(self):
         from mrcnn3d_torch.ops import nms3d, roi_align3d
@@ -2164,6 +2248,8 @@ class PlainKernels:
         mods = {"nms3d": nms3d, "roi_align3d": roi_align3d}
         self._saved = []
         for name, attr, plain in self.SWAPS:
+            if self.wrappers is not None and attr not in self.wrappers:
+                continue
             mod = mods[name]
             self._saved.append((mod, attr, getattr(mod, attr)))
             setattr(mod, attr, getattr(mod, plain))
@@ -2228,7 +2314,8 @@ class ReluBranches:
 def learn_gradients(state, batch, plain, branches=None):
     """forward_train and its backward with the weights `state` holds, on
     `batch`, the samplers drawing from CountedDraws(LEARN_SEED); with
-    `plain`, the plain versions in place of the kernels; with
+    `plain`, the plain versions in place of the kernels (True: all of
+    them; a tuple: the wrappers it names, as PlainKernels); with
     `branches` (a ReluBranches' record), every relu takes those branches
     at its ties.  Returns (losses, {parameter: gradient}, the recorded
     samples, the draws' counts, the ReluBranches of the pass), on the
@@ -2241,7 +2328,8 @@ def learn_gradients(state, batch, plain, branches=None):
     sets = state.anchor_sets(scale_shapes(model, batch))
     model.zero_grad(set_to_none=True)
     draws = CountedDraws(LEARN_SEED)
-    swap = PlainKernels() if plain else contextlib.nullcontext()
+    swap = (PlainKernels(None if plain is True else plain) if plain
+            else contextlib.nullcontext())
     relus = ReluBranches(branches)
     with SampleRecorder() as rec, swap, relus:
         total, losses = forward_train(model, batch, state.cfg, sets, draws)
@@ -2284,40 +2372,129 @@ def check_relu_ties(ties, what):
                                  f"tie: {tie}")
 
 
+class AlignAgainstPlain:
+    """Within the block, every launch of K2's forward is held against its
+    plain version on the same arguments (`check_align_output`, K2's own
+    gate); the largest error is kept in `max_abs_err`."""
+
+    def __enter__(self):
+        from mrcnn3d_torch.ops import roi_align3d as ra
+
+        self.launches, self.max_abs_err = 0, 0.0
+        self._fn = fn = ra.roi_align_3d_cuda
+
+        def checked(*args):
+            import torch
+
+            got = fn(*args)
+            with torch.no_grad():
+                want = ra.roi_align_3d_plain(*args)
+            err, _ = check_align_output(got, want, "K2 in the learn check")
+            self.launches += 1
+            self.max_abs_err = max(self.max_abs_err, err)
+            return got
+
+        ra.roi_align_3d_cuda = checked
+        return self
+
+    def __exit__(self, *exc):
+        from mrcnn3d_torch.ops import roi_align3d as ra
+
+        ra.roi_align_3d_cuda = self._fn
+        return False
+
+
+class PinnedCudnn:
+    """Within the block, cuDNN takes its deterministic algorithms by its
+    heuristics instead of the fastest by timing (`cudnn.benchmark`): the
+    same algorithms in every pass and every run, whatever an earlier
+    phase timed; the flags are restored after."""
+
+    def __enter__(self):
+        import torch
+
+        cudnn = torch.backends.cudnn
+        self._saved = (cudnn.benchmark, cudnn.deterministic)
+        cudnn.benchmark, cudnn.deterministic = False, True
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        cudnn = torch.backends.cudnn
+        cudnn.benchmark, cudnn.deterministic = self._saved
+        return False
+
+
+def attribute_gradient_error(state, batch, kern, name):
+    """Where a parameter's gradient through the kernels and through their
+    plain versions differ: `name`'s largest difference from the kernel
+    pass `kern` (learn_gradients' record) when only one kernel runs its
+    plain version (each in turn, on the kernel pass's relu branches), and
+    when the kernel pass is run again, each over the kernel pass's
+    largest magnitude."""
+    scale = float(kern[1][name].abs().max()) or 1.0
+    out = {}
+    for _, attr, _ in PlainKernels.SWAPS:
+        g = learn_gradients(state, batch, plain=(attr,),
+                            branches=kern[4].branches)[1][name]
+        out[f"only {attr} plain"] = float((g - kern[1][name]).abs().max()) \
+            / scale
+    g = learn_gradients(state, batch, plain=False)[1][name]
+    out["kernel pass again"] = float((g - kern[1][name]).abs().max()) / scale
+    return out
+
+
 def check_learn_gradients(state, batches):
     """The trained detector's gradients on each of `batches` (the
     loader's first epoch), through the kernels against through their
-    plain versions, on the card, from the same draws.  K2's forward
-    differs from its plain version in the last bits, so a relu whose
-    input lies within rounding of 0 may take the other branch in the
-    other pass; after training the mask heads' gradients rest on few
-    rois, and one such unit can move a parameter's gradient by more than
-    PIPELINE_ATOL of its largest (PERF.md §6).  So the plain pass takes
-    the kernel pass's branch at those ties (`ReluBranches`), each of
-    which must be one (`check_relu_ties`).  Then every draw's count and
-    sample equal, the losses within PIPELINE_ATOL, and each parameter's
-    gradient within PIPELINE_ATOL of the plain gradient's largest
-    magnitude.  Reports, a batch, the ties by call and the largest
-    relative error of each module."""
+    plain versions, on the card, from the same draws, with cuDNN pinned
+    to the same deterministic algorithms in both passes (`PinnedCudnn`),
+    so that the kernels are all the passes differ by.  Every K2 forward
+    launch of the kernel pass is held against its plain version on its
+    own arguments (`AlignAgainstPlain`).  K2's forward differs from its
+    plain version in the last bits, so a relu whose input lies within
+    rounding of 0 may take the other branch in the other pass; after
+    training the mask heads' gradients rest on few rois, and one such
+    unit can move a parameter's gradient by more than PIPELINE_ATOL of
+    its largest (PERF.md §6).  So the plain pass takes the kernel pass's
+    branch at those ties (`ReluBranches`), each of which must be one
+    (`check_relu_ties`).  Then every draw's count and sample equal, the
+    losses within PIPELINE_ATOL, and each parameter's gradient within
+    PIPELINE_ATOL of the plain gradient's largest magnitude; a parameter
+    past it fails with `attribute_gradient_error`'s reading.  Reports, a
+    batch, the ties by call, the largest relative error of each module
+    and K2's largest forward error."""
     out = []
-    for i, batch in enumerate(batches):
-        what = f"learn gradients, batch {i}"
-        kern = learn_gradients(state, batch, plain=False)
-        plain = learn_gradients(state, batch, plain=True,
-                                branches=kern[4].branches)
-        made_err, loss_err = compare_samples(kern[:4], plain[:4], what)
-        check_relu_ties(plain[4].ties, what)
-        errors = _grad_errors(kern[1], plain[1])
-        for name, (e, scale) in errors.items():
-            if not e <= PIPELINE_ATOL * scale:
-                raise AssertionError(f"{what}: {name} differs by {e}, "
-                                     f"largest {scale}")
-        out.append(dict(
-            losses=kern[0], max_loss_err=loss_err,
-            positives=[h for site, _, h in plain[3] if site[-1] == "pos"],
-            max_sample_float_err=made_err, relu_ties=plain[4].ties,
-            worst_grad_rel_err_by_module=_worst_by_module(errors)))
-    return dict(batches=out, tie_tol=TIE_TOL, tol=PIPELINE_ATOL)
+    with PinnedCudnn():
+        for i, batch in enumerate(batches):
+            what = f"learn gradients, batch {i}"
+            with AlignAgainstPlain() as aligns:
+                kern = learn_gradients(state, batch, plain=False)
+            if not aligns.launches:
+                raise AssertionError(f"{what}: no K2 launch")
+            plain = learn_gradients(state, batch, plain=True,
+                                    branches=kern[4].branches)
+            made_err, loss_err = compare_samples(kern[:4], plain[:4], what)
+            check_relu_ties(plain[4].ties, what)
+            errors = _grad_errors(kern[1], plain[1])
+            for name, (e, scale) in errors.items():
+                if not e <= PIPELINE_ATOL * scale:
+                    raise AssertionError(
+                        f"{what}: {name} differs by {e}, largest {scale}; "
+                        f"relu ties {plain[4].ties}; K2's largest forward "
+                        f"error {aligns.max_abs_err}; relative to the "
+                        "kernel pass: "
+                        f"{attribute_gradient_error(state, batch, kern, name)}")
+            out.append(dict(
+                losses=kern[0], max_loss_err=loss_err,
+                positives=[h for site, _, h in plain[3] if site[-1] == "pos"],
+                max_sample_float_err=made_err, relu_ties=plain[4].ties,
+                align_launches=aligns.launches,
+                align_max_abs_err=aligns.max_abs_err,
+                worst_grad_rel_err_by_module=_worst_by_module(errors)))
+    return dict(batches=out, tie_tol=TIE_TOL, tol=PIPELINE_ATOL,
+                align_tol=ALIGN_TOL["float32"])
 
 
 def learn_epoch(cfg, data, device):
@@ -2680,6 +2857,50 @@ def check_small_variant(device, type_name):
                 outputs=sorted(a), train=trained)
 
 
+def _timed(step, per_step, steps, what):
+    """1 warm-up and `steps` timed calls of `step`, the counters zeroed
+    just before and read just after the timed ones, the peak memory."""
+    import numpy as np
+    import torch
+
+    from mrcnn3d_torch.ops import roi_align3d
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    last = step()
+    torch.cuda.synchronize()
+    zero_counts()
+    roi_align3d.reset_path_counts()
+    walls = []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        last = step()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    _check_counts(kernel_counts(), per_step, steps, what)
+    return last, dict(
+        step_s=walls, median_step_s=float(np.median(walls)),
+        max_memory_allocated_gib=torch.cuda.max_memory_allocated() / 2**30,
+        launches_per_step=per_step,
+        k2_rois_by_path=roi_align3d.path_counts())
+
+
+def _check_result(res, name):
+    """A full-width step's outputs: at least one detection and every
+    output but valid and labels finite; returns their record."""
+    import torch
+
+    n_det = int(res["valid"].sum())
+    if n_det == 0:
+        raise AssertionError(f"{name}: no detections at full width")
+    for key, v in res.items():
+        if key not in ("valid", "labels") and \
+                not bool(torch.isfinite(v.float()).all()):
+            raise AssertionError(f"{name}: non-finite {key}")
+    return dict(detections=n_det, outputs=sorted(res),
+                shapes={k: list(v.shape) for k, v in res.items()})
+
+
 def run_variant(device, type_name, steps=3, record=False):
     """A variant at full width, bf16, every budget 2000, masks on: its
     inference on the bench.py headline geometry (a 144x1152x1152 third
@@ -2693,7 +2914,6 @@ def run_variant(device, type_name, steps=3, record=False):
     import torch
 
     from mrcnn3d_torch.entry import build, build_trainer
-    from mrcnn3d_torch.ops import roi_align3d
 
     infer, train = variant_per_step(type_name)
     torch.backends.cudnn.benchmark = True
@@ -2706,40 +2926,9 @@ def run_variant(device, type_name, steps=3, record=False):
         (1, 3, *VARIANT_MAIN_SHAPES[s]), generator=gen, device=device).to(
             torch.bfloat16) for s in range(model.num_scales)}
     out = {}
-
-    def timed(step, per_step, what):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        last = step()
-        torch.cuda.synchronize()
-        zero_counts()
-        roi_align3d.reset_path_counts()
-        walls = []
-        for _ in range(steps):
-            t0 = time.perf_counter()
-            last = step()
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        _check_counts(kernel_counts(), per_step, steps, what)
-        return last, dict(
-            step_s=walls, median_step_s=float(np.median(walls)),
-            max_memory_allocated_gib=torch.cuda.max_memory_allocated()
-            / 2**30, launches_per_step=per_step,
-            k2_rois_by_path=roi_align3d.path_counts())
-
-    res, out["inference"] = timed(lambda: det.simple_test(batch), infer,
-                                  f"{type_name} inference")
-    valid = res["valid"]
-    n_det = int(valid.sum())
-    if n_det == 0:
-        raise AssertionError(f"{type_name}: no detections at full width")
-    for key, v in res.items():
-        if key != "valid" and key != "labels" and \
-                not bool(torch.isfinite(v.float()).all()):
-            raise AssertionError(f"{type_name}: non-finite {key}")
-    out["inference"].update(detections=n_det, outputs=sorted(res),
-                            shapes={k: list(v.shape)
-                                    for k, v in res.items()})
+    res, out["inference"] = _timed(lambda: det.simple_test(batch), infer,
+                                   steps, f"{type_name} inference")
+    out["inference"].update(_check_result(res, type_name))
     captured = None
     if record:
         with Capture() as captured:
@@ -2751,8 +2940,8 @@ def run_variant(device, type_name, steps=3, record=False):
                             compute_dtype=torch.bfloat16)
     tb = train_batch(torch.Generator(device=device).manual_seed(17), device,
                      model.num_scales, model.num_parcellations > 0)
-    losses, out["train"] = timed(lambda: trainer.step(tb), train,
-                                 f"{type_name} train")
+    losses, out["train"] = _timed(lambda: trainer.step(tb), train, steps,
+                                  f"{type_name} train")
     losses = {k: float(v) for k, v in losses.items()}
     if not all(np.isfinite(v) for v in losses.values()):
         raise AssertionError(f"{type_name} train: non-finite {losses}")
@@ -2932,7 +3121,6 @@ def run_family(device, type_name, steps=3, record=False):
     import torch
 
     from mrcnn3d_torch.entry import build, build_trainer
-    from mrcnn3d_torch.ops import roi_align3d
 
     infer, train = family_per_step(type_name)
     torch.backends.cudnn.benchmark = True
@@ -2942,45 +3130,14 @@ def run_family(device, type_name, steps=3, record=False):
     batch = {"imgs": torch.randn((1, 3, *MAIN_SHAPES[0]), generator=gen,
                                  device=device).to(torch.bfloat16)}
     out = {}
-
-    def timed(step, per_step, what):
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        last = step()
-        torch.cuda.synchronize()
-        zero_counts()
-        roi_align3d.reset_path_counts()
-        walls = []
-        for _ in range(steps):
-            t0 = time.perf_counter()
-            last = step()
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-        _check_counts(kernel_counts(), per_step, steps, what)
-        return last, dict(
-            step_s=walls, median_step_s=float(np.median(walls)),
-            max_memory_allocated_gib=torch.cuda.max_memory_allocated()
-            / 2**30, launches_per_step=per_step,
-            k2_rois_by_path=roi_align3d.path_counts())
-
-    res, out["inference"] = timed(lambda: det.simple_test(batch), infer,
-                                  f"{type_name} inference")
-    valid = res["valid"]
-    n_det = int(valid.sum())
-    if n_det == 0:
-        raise AssertionError(f"{type_name}: no detections at full width")
-    for key, v in res.items():
-        if key not in ("valid", "labels") and \
-                not bool(torch.isfinite(v.float()).all()):
-            raise AssertionError(f"{type_name}: non-finite {key}")
+    res, out["inference"] = _timed(lambda: det.simple_test(batch), infer,
+                                   steps, f"{type_name} inference")
+    out["inference"].update(_check_result(res, type_name))
     b = cfg.test_cfg["rcnn"]["max_per_img"]
     if tuple(res["dets"].shape) != (1, b, 7) or \
             ("mask_logits" in res) != (type_name == "HybridTaskCascade3D"):
         shapes = {k: tuple(v.shape) for k, v in res.items()}
         raise AssertionError(f"{type_name}: outputs {shapes}")
-    out["inference"].update(detections=n_det, outputs=sorted(res),
-                            shapes={k: list(v.shape)
-                                    for k, v in res.items()})
     captured = None
     if record:
         with Capture() as captured:
@@ -2994,8 +3151,8 @@ def run_family(device, type_name, steps=3, record=False):
                      scales=1)
     if type_name == "HybridTaskCascade3D":
         tb["gt_semantic_seg"] = semantic_seg(tb)
-    losses, out["train"] = timed(lambda: trainer.step(tb), train,
-                                 f"{type_name} train")
+    losses, out["train"] = _timed(lambda: trainer.step(tb), train, steps,
+                                  f"{type_name} train")
     losses = {k: float(v) for k, v in losses.items()}
     if not all(np.isfinite(v) for v in losses.values()):
         raise AssertionError(f"{type_name} train: non-finite {losses}")
@@ -3537,6 +3694,434 @@ def run_multicard_phase(device):
     return world1, world2
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the other backbones, OHEM, test-time augmentation, host modules
+# ---------------------------------------------------------------------------
+
+
+# the runs whose full-width launches are recorded and checked alone
+EXTRAS_CHECKED = (*BACKBONES, "TTA")
+# the test-time views of phase 18: identity, W-flip, 1.5x on every axis
+TTA_METAS = [dict(scale_factor=1.0, flip=False),
+             dict(scale_factor=1.0, flip=True),
+             dict(scale_factor=1.5, flip=False)]
+# launches a step, read from the code: every backbone and OHEM run the
+# flagship's pipeline (VARIANT_LAUNCHES's rule for MaskRCNN3D2Scales:
+# inference K1 3, K2 4; train K1 2, K2 and its backward 5); TTA over V
+# views (detectors/aug.py) K1 V + 2 (each view's proposals, the merge,
+# the class-wise NMS) and K2 2V (each view's bbox and mask aligns)
+EXTRAS_LAUNCHES = {**{name: ((3, 4), (2, 5, 5)) for name in BACKBONES},
+                   "OHEM": ((3, 4), (2, 5, 5)),
+                   "TTA": ((5, 6), None)}
+
+
+def extras_recipe(cfg, name):
+    """The config of a phase-18 run, in place: a BACKBONES backbone,
+    "OHEM" (the R-CNN sampler OHEMSampler) or "TTA" (single-scale
+    MaskRCNN3D by the JAX aug_test recipe, tests/test_aug_test.py:80-89,
+    at depth 50).  The full-width runs also set the R-CNN score
+    threshold to 0 (`extras_full`)."""
+    if name in BACKBONES:
+        return backbone_recipe(cfg, name)
+    if name == "OHEM":
+        cfg.train_cfg["rcnn"]["sampler"]["type"] = "OHEMSampler"
+        return cfg
+    return variant_recipe(cfg, "MaskRCNN3D")
+
+
+def extras_full(cfg):
+    """The full-width runs' config: R-CNN score threshold 0, so every
+    class-1 row enters the class-wise NMS and the mask stage sees the
+    2000-row budget whatever random weights score (ResNet3D-101's seed-0
+    weights score no row above the config's 0.2 on the headline pair,
+    measured on one H100)."""
+    cfg.test_cfg["rcnn"]["score_thr"] = 0.0
+    return cfg
+
+
+def tta_calls():
+    """The names of one aug_test's launches over TTA_METAS, in the order
+    aug.py makes them (masks on)."""
+    views = range(len(TTA_METAS))
+    return {"nms3d": [f"proposals_view{v}" for v in views]
+            + ["merge", "classwise"],
+            "roi_align3d": [f"bbox_view{v}" for v in views]
+            + [f"mask_view{v}" for v in views]}
+
+
+def extras_calls(name, train):
+    """The names of one step's launches of a phase-18 run."""
+    if name == "TTA":
+        return tta_calls()
+    return variant_calls("MaskRCNN3D2Scales", train)
+
+
+def extras_per_step(name):
+    """EXTRAS_LAUNCHES of a run as counter dicts (inference, train; None
+    where it has none), checked against the launches read from the
+    code."""
+    (k1, k2), tr = EXTRAS_LAUNCHES[name]
+    infer = {"nms3d": k1, "roi_align3d": k2}
+    train = None if tr is None else dict(zip(
+        ("nms3d", "roi_align3d", "roi_align3d_backward"), tr))
+    for per_step, is_train in ((infer, False), (train, True)):
+        if per_step is None:
+            continue
+        got = {k: len(v) for k, v in extras_calls(name, is_train).items()}
+        if is_train:
+            got["roi_align3d_backward"] = got["roi_align3d"]
+        if got != per_step:
+            raise AssertionError(f"{name}: the code makes {got} launches "
+                                 f"a step, the table {per_step}")
+    return infer, train
+
+
+def tta_views(vol):
+    """TTA_METAS's views of (B, 3, D, H, W) volumes: the volume, its
+    W-flip, and its 1.5x trilinear resize (`ops/resize3d.py`)."""
+    from mrcnn3d_torch.ops.resize3d import jax_resize
+
+    big = jax_resize(vol, tuple(int(n * 1.5) for n in vol.shape[2:]),
+                     "trilinear")
+    return [dict(imgs=vol), dict(imgs=vol.flip(-1)), dict(imgs=big)]
+
+
+def tta_run(det, vol, scale=1.0):
+    """aug_test of `det` over tta_views of the numpy volume; numpy
+    outputs."""
+    import torch
+
+    x = torch.from_numpy(vol).to(det.device) * scale
+    out = det.aug_test(tta_views(x), TTA_METAS)
+    return {k: v.cpu().numpy() for k, v in out.items()}
+
+
+def check_small_extra(device, name):
+    """A phase-18 run at the narrow widths (budgets 64) on the card
+    against the CPU: its inference (valid and labels equal, the rest
+    within PIPELINE_ATOL) and, but for TTA, one train step as
+    check_small_train holds it (every sample index equal: OHEM's ranked
+    negatives among them); the card's launches, one step each, as
+    EXTRAS_LAUNCHES says."""
+    import numpy as np
+
+    from mrcnn3d_torch.entry import build
+
+    infer, train = extras_per_step(name)
+    cfg = extras_recipe(small_config(), name)
+    gpu = build(cfg, device=device, budgets=SMALL_BUDGET)
+    cpu = build(cfg, device="cpu", budgets=SMALL_BUDGET)
+    # UNet3D's poolings and crops need sides divisible by 8 (the
+    # full-width shapes are)
+    shapes = UNET_SMALL_SHAPES if name == "UNet3D" else SMALL_SHAPES
+    rng = np.random.RandomState(7)
+    if name == "TTA":
+        vol = rng.randn(1, 3, *shapes[0]).astype(np.float32)
+        zero_counts()
+        a = tta_run(gpu, vol)
+        _check_counts(kernel_counts(), infer, 1, f"small {name}")
+        b = tta_run(cpu, vol)
+        a["mask_logits"], b["mask_logits"] = (x.pop("mask_probs")
+                                              for x in (a, b))
+    else:
+        batch = {k: rng.randn(1, 3, *s).astype(np.float32)
+                 for k, s in zip(("imgs", "imgs_2"), shapes)}
+        zero_counts()
+        a = small_run(gpu, batch)
+        _check_counts(kernel_counts(), infer, 1, f"small {name}")
+        b = small_run(cpu, batch)
+    err = compare_outputs(a, b, PIPELINE_ATOL, f"small {name}")
+    n = int(a["valid"].sum())
+    if n == 0:
+        raise AssertionError(f"small {name}: no detections, vacuous")
+    rec = dict(detections=n, max_abs_err=err, outputs=sorted(a))
+    if train is not None:
+        zero_counts()
+        rec["train"] = check_small_train(
+            device, extras_recipe(small_train_config(), name),
+            small_train_batch(3, shapes=shapes), f"small train {name}")
+        _check_counts(kernel_counts(), train, 1, f"small train {name}")
+    return rec
+
+
+class PreNms:
+    """Within the block, records the inputs of aug.py's class-wise NMS
+    (the merged views' boxes, scores and valid rows)."""
+
+    def __enter__(self):
+        from mrcnn3d_torch.detectors import aug
+
+        self._fn = fn = aug.multiclass_nms_3d
+        self.rows = None
+
+        def record(boxes, scores, valid, *args):
+            self.rows = (boxes, scores, valid)
+            return fn(boxes, scores, valid, *args)
+
+        aug.multiclass_nms_3d = record
+        return self
+
+    def __exit__(self, *exc):
+        from mrcnn3d_torch.detectors import aug
+
+        aug.multiclass_nms_3d = self._fn
+        return False
+
+
+def run_extra(device, name, steps=3, record=False):
+    """A phase-18 run at full width, bf16, every budget 2000, masks on:
+    inference on the headline geometry (the flagship's two volumes; for
+    TTA the three views of the 64x512x512 volume) and, but for TTA, the
+    train step on bench.py's training geometry; each 1 warm-up and
+    `steps` timed (OHEM: its train step only), the counters zeroed just
+    before and read just after the timed ones, the peak memory.  record:
+    one more step of each whose launches are recorded.  Returns (the
+    record, the captured inference step, the captured train step, the
+    inference's last result)."""
+    import numpy as np
+    import torch
+
+    from mrcnn3d_torch.entry import build, build_trainer
+
+    infer, train = extras_per_step(name)
+    torch.backends.cudnn.benchmark = True
+    cfg = extras_full(extras_recipe(main_config(), name))
+    out, captured, res = {}, None, None
+    gen = torch.Generator(device=device).manual_seed(11)
+    if name != "OHEM":
+        det = build(cfg, device=device, dtype=torch.bfloat16,
+                    budgets=MAIN_BUDGET, seed=0)
+        if name == "TTA":
+            views = tta_views(torch.randn(
+                (1, 3, *MAIN_SHAPES[0]), generator=gen,
+                device=device).to(torch.bfloat16))
+
+            def step():
+                return det.aug_test(views, TTA_METAS)
+        else:
+            batch = {k: torch.randn((1, 3, *s), generator=gen,
+                                    device=device).to(torch.bfloat16)
+                     for k, s in zip(("imgs", "imgs_2"), MAIN_SHAPES)}
+
+            def step():
+                return det.simple_test(batch)
+
+        res, out["inference"] = _timed(step, infer, steps,
+                                       f"{name} inference")
+        out["inference"].update(_check_result(res, name))
+        if name == "TTA":
+            out["inference"]["views"] = [list(v["imgs"].shape)
+                                         for v in views]
+            with PreNms() as pre:
+                step()
+            out["pre_nms"] = pre.rows
+        if record:
+            with Capture() as captured:
+                step()
+            torch.cuda.synchronize()
+        del det, step
+    train_captured = None
+    if train is not None:
+        trainer = build_trainer(cfg, device=device, seed=0,
+                                compute_dtype=torch.bfloat16)
+        tb = train_batch(torch.Generator(device=device).manual_seed(17),
+                         device)
+        losses, out["train"] = _timed(lambda: trainer.step(tb), train,
+                                      1 if name == "OHEM" else steps,
+                                      f"{name} train")
+        losses = {k: float(v) for k, v in losses.items()}
+        if not all(np.isfinite(v) for v in losses.values()):
+            raise AssertionError(f"{name} train: non-finite {losses}")
+        out["train"].update(losses_last=losses, batch=TRAIN_BATCH,
+                            volumes_per_s=TRAIN_BATCH
+                            / out["train"]["median_step_s"])
+        if record:
+            with Capture(tuple(TRAIN_PER_STEP)) as train_captured:
+                trainer.step(tb)
+            torch.cuda.synchronize()
+        del trainer, tb
+    return out, captured, train_captured, res
+
+
+def extras_gt(seed=23, n=8):
+    """A seeded gt of n boxes inside the headline volume, (n, 6)
+    xyxyzz."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    d, h, w = MAIN_SHAPES[0]
+    ext = rng.uniform(8, 40, (n, 3)) * np.array([1, 1, 0.25])
+    lo = rng.uniform(0, 1, (n, 3)) * (np.array([w, h, d]) - ext - 1)
+    hi = lo + ext
+    return np.stack([lo[:, 0], lo[:, 1], hi[:, 0], hi[:, 1], lo[:, 2],
+                     hi[:, 2]], 1).astype(np.float32)
+
+
+def check_host_modules(device, tta_res, pre_nms):
+    """Phase 18 (d): the host-side modules on the card's outputs, as a
+    check that they run (the numbers are no claim): eval_map_3d of the
+    TTA detections against a seeded gt; eval_recalls_3d of full-width
+    RPN3D's proposals on the headline volume; soft_nms_3d (linear,
+    gaussian, naive) on the 1000 valid TTA pre-NMS rows with the highest
+    class-1 scores; roi_pool_3d on a full-width FPN level (the flagship's
+    level 1 of the headline volume) against its numpy oracle, exactly."""
+    import numpy as np
+    import torch
+
+    from mrcnn3d_torch.entry import build
+    from mrcnn3d_torch.eval.mean_ap import eval_map_3d
+    from mrcnn3d_torch.eval.recall import eval_recalls_3d
+    from mrcnn3d_torch.ops.nms3d import soft_nms_3d
+    from mrcnn3d_torch.ops.roi_pool3d import roi_pool_3d
+
+    out = {}
+    gt = extras_gt()
+    v = tta_res["valid"][0]
+    dets = tta_res["dets"][0][v].float().cpu().numpy()
+    t = time.perf_counter()
+    ap, rec, prec = eval_map_3d([dets], [gt])
+    out["eval_map_3d"] = dict(ap=ap, dets=len(dets), gts=len(gt),
+                              seconds=time.perf_counter() - t)
+
+    rpn = build(variant_recipe(main_config(), "RPN3D"), device=device,
+                dtype=torch.bfloat16, budgets=MAIN_BUDGET, seed=0)
+    gen = torch.Generator(device=device).manual_seed(11)
+    vol = torch.randn((1, 3, *MAIN_SHAPES[0]), generator=gen,
+                      device=device).to(torch.bfloat16)
+    props = rpn.simple_test(dict(imgs=vol))
+    pv = props["valid"][0]
+    p = props["dets"][0][pv].float().cpu().numpy()
+    t = time.perf_counter()
+    recalls = eval_recalls_3d([gt], [p], (100, 300, 1000, 2000),
+                              (0.1, 0.3, 0.5))
+    out["eval_recalls_3d"] = dict(recalls=recalls.tolist(),
+                                  proposals=len(p),
+                                  seconds=time.perf_counter() - t)
+
+    boxes, scores, valid = pre_nms
+    rows = torch.cat([boxes[0, :, 6:12], scores[0, :, 1:2]], 1)[valid[0]]
+    rows = rows[torch.argsort(rows[:, 6], descending=True)[:1000]]
+    out["soft_nms_3d"] = {"rows": int(rows.shape[0])}
+    for method in ("linear", "gaussian", "naive"):
+        t = time.perf_counter()
+        kept, idx = soft_nms_3d(rows, 0.3, method)
+        out["soft_nms_3d"][method] = dict(kept=len(idx),
+                                          seconds=time.perf_counter() - t)
+
+    level = rpn.model.extract_feat(vol)[1].float()
+    stride, stride_d = 8, 4
+    rng = np.random.RandomState(5)
+    d, h, w = MAIN_SHAPES[0]
+    # some rois start outside the volume, some end past it
+    lo = rng.uniform(0, 1, (64, 3)) * np.array([w, h, d]) - \
+        np.array([16, 16, 2])
+    ext = rng.uniform(8, 160, (64, 3)) * np.array([1, 1, 0.2])
+    rois = np.concatenate([np.zeros((64, 1)), lo[:, :2], lo[:, :2]
+                           + ext[:, :2], lo[:, 2:], lo[:, 2:] + ext[:, 2:]],
+                          1).astype(np.float32)
+    t = time.perf_counter()
+    got = roi_pool_3d(level, torch.from_numpy(rois).to(device), 7, 3,
+                      1.0 / stride, 1.0 / stride_d).cpu().numpy()
+    pool_s = time.perf_counter() - t
+    want = roi_pool_3d_oracle(level.permute(0, 2, 3, 4, 1).cpu().numpy(),
+                              rois, 7, 3, 1.0 / stride, 1.0 / stride_d)
+    if not np.array_equal(got, want):
+        raise AssertionError("roi_pool_3d: the card differs from the "
+                             "numpy oracle")
+    out["roi_pool_3d"] = dict(rois=64, level=list(level.shape),
+                              max_abs_out=float(np.abs(got).max()),
+                              seconds=pool_s)
+    return out
+
+
+def roi_pool_3d_oracle(feats, rois, out_size, out_size_depth,
+                       spatial_scale, depth_scale):
+    """The scalar numpy oracle of RoIPool3D, a copy of
+    `mrcnn3d/ops/roi_pool3d.py:roi_pool_3d_numpy`: feats (B, D, H, W,
+    C); returns (N, C, od, o, o)."""
+    import numpy as np
+
+    fb, fd, fh, fw, c = feats.shape
+    n = rois.shape[0]
+    out = np.zeros((n, out_size_depth, out_size, out_size, c), np.float32)
+    for i, roi in enumerate(np.asarray(rois)):
+        bi = int(roi[0])
+        x1 = int(round(roi[1] * spatial_scale))
+        y1 = int(round(roi[2] * spatial_scale))
+        x2 = int(round(roi[3] * spatial_scale))
+        y2 = int(round(roi[4] * spatial_scale))
+        z1 = int(round(roi[5] * depth_scale))
+        z2 = int(round(roi[6] * depth_scale))
+        w = max(x2 - x1 + 1, 1)
+        h = max(y2 - y1 + 1, 1)
+        d = max(z2 - z1 + 1, 1)
+        for oz in range(out_size_depth):
+            zs = max(min(z1 + int(np.floor(oz * d / out_size_depth)), fd), 0)
+            ze = max(min(z1 + int(np.ceil((oz + 1) * d / out_size_depth)),
+                         fd), 0)
+            for oy in range(out_size):
+                ys = max(min(y1 + int(np.floor(oy * h / out_size)), fh), 0)
+                ye = max(min(y1 + int(np.ceil((oy + 1) * h / out_size)),
+                             fh), 0)
+                for ox in range(out_size):
+                    xs = max(min(x1 + int(np.floor(ox * w / out_size)), fw),
+                             0)
+                    xe = max(min(x1 + int(np.ceil((ox + 1) * w / out_size)),
+                                 fw), 0)
+                    if zs >= ze or ys >= ye or xs >= xe:
+                        continue
+                    out[i, oz, oy, ox] = feats[
+                        bi, zs:ze, ys:ye, xs:xe].max(axis=(0, 1, 2))
+    return np.moveaxis(out, -1, 1)
+
+
+def run_extras(device):
+    """Phase 18: each backbone, OHEM and TTA, card against CPU at the
+    narrow widths, then at full width; the launches of EXTRAS_CHECKED's
+    steps each checked alone against the plain versions (as
+    phases 6 and 9); then the host-side modules on the card's outputs.
+    Returns (the per-run records, the checked launches by run, the host
+    modules' record)."""
+    import torch
+
+    records, checks = {}, {}
+    tta_res = pre_nms = None
+    for name in (*BACKBONES, "OHEM", "TTA"):
+        t = time.perf_counter()
+        rec = {"small": check_small_extra(device, name)}
+        checked = name in EXTRAS_CHECKED
+        full, cap, train_cap, res = run_extra(device, name, record=checked)
+        if name == "TTA":
+            tta_res, pre_nms = res, full.pop("pre_nms")
+        rec.update(full)
+        if checked:
+            with torch.no_grad():
+                checks[name] = {"inference": check_launches(
+                    cap, extras_calls(name, False), f"{name} step")}
+                if train_cap is not None:
+                    checks[name]["train"] = check_train_step_kernels(
+                        train_cap, extras_calls(name, True))
+            del cap, train_cap
+        rec["seconds"] = time.perf_counter() - t
+        records[name] = rec
+        del res
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    host = check_host_modules(device, tta_res, pre_nms)
+    host["seconds"] = time.perf_counter() - t
+    return records, checks, host
+
+
+def run_extras_phase(device):
+    """Phase 18: the other backbones, OHEM, TTA and the host modules."""
+    t = time.perf_counter()
+    extras, checks, host = run_extras(device)
+    emit({"phase": "extras", "ok": True, "runs": extras,
+          "kernel_checks": checks, "host_modules": host,
+          "seconds": time.perf_counter() - t})
+    return extras, checks
+
+
 def _per_call(calls):
     return [{k: c[k] for k in ("name", "valid", "ms", "device_ms",
                                "device_ms_by_kernel", "plain_ms",
@@ -3562,10 +4147,27 @@ def _path_sums(prefix, calls):
             f"{prefix}_calls": _per_call(calls)}
 
 
+def extras_keys(extras, checks, name, train_only=False):
+    """Phase 18's keys of kernel `name` in the kernels line: each run's
+    launches a step (extras_launches, by part) and, for the checked
+    runs, the sums over their steps' launches."""
+    parts = ("train",) if train_only else ("inference", "train")
+    counts = {run: {k: r[k]["launches_per_step"][name] for k in parts
+                    if k in r}
+              for run, r in extras.items()}
+    sums = {}
+    for run, c in checks.items():
+        for part, prefix in (("inference", "step"), ("train", "train_step")):
+            if part in c and part in parts:
+                sums.update(_path_sums(f"{run}_{prefix}", c[part][name]))
+    return {"extras_launches": counts, **sums}
+
+
 def kernels_line(nms_calls, align_calls, backward_calls, step_calls,
                  main_path, train_calls, train_path, tile_calls, wholevol,
                  learn, learn_calls, serve, serve_calls, variants,
-                 variant_checks, families, family_checks, multicard):
+                 variant_checks, families, family_checks, multicard,
+                 extras, extras_checks):
     """The {"kernels": [...]} record.  Per kernel: launches from the
     counted run of its path (K1 and K2: the inference main path, with the
     train path's beside them as train_* and the whole volume's as
@@ -3587,7 +4189,10 @@ def kernels_line(nms_calls, align_calls, backward_calls, step_calls,
     families (family_launches_per_step, and FAMILY_CHECKED's sums).  The
     multicard phase's: the data-parallel step's counted launches at
     world 1 under NCCL (multicard_launches) and each world-2 rank's per
-    run (multicard_world2_launches)."""
+    run (multicard_world2_launches).  Phase 18's: each backbone's, OHEM's
+    and TTA's launches a step from its counted full-width runs
+    (extras_launches), and for EXTRAS_CHECKED the sums over their steps'
+    launches (<run>_step_*, <run>_train_step_*)."""
     profile = main_path["profile"] or {}
 
     def group_keys(prefix, records, checks, name, train_only=False):
@@ -3606,7 +4211,8 @@ def kernels_line(nms_calls, align_calls, backward_calls, step_calls,
         return {**group_keys("variant", variants, variant_checks, name,
                              train_only),
                 **group_keys("family", families, family_checks, name,
-                             train_only)}
+                             train_only),
+                **extras_keys(extras, extras_checks, name, train_only)}
 
     def multicard_keys(name):
         world1, world2 = multicard
@@ -3617,7 +4223,8 @@ def kernels_line(nms_calls, align_calls, backward_calls, step_calls,
 
     def variant_errs(name, train_only=False):
         parts = ("train",) if train_only else ("inference", "train")
-        return [c for checks in (variant_checks, family_checks)
+        return [c for checks in (variant_checks, family_checks,
+                                 extras_checks)
                 for v in checks.values() for part in parts if part in v
                 for c in v[part][name]]
 
@@ -3733,6 +4340,52 @@ def run_families_phase(device):
     return families, checks
 
 
+def run_learn_states(device, states):
+    """The learn gate (check_learn_gradients) on `states` more detectors,
+    each trained as run_learn trains its own (the pinned data, the
+    config, LEARN_ITERS iterations) but from seeds LEARN_SEED + 1, + 2,
+    ..., on the loader's first epoch: one line a state with each batch's
+    largest relative gradient error and its module.  A state past the
+    gate fails as phase 13 does."""
+    import shutil
+    import tempfile
+
+    from mrcnn3d_torch.apis.train_api import train_detector
+    from mrcnn3d_torch.tools import learning_bench as lb
+    from mrcnn3d_torch.utils.config import Config
+
+    if not states:
+        return
+    cfg = Config.fromfile(CONFIG)
+    workdir = tempfile.mkdtemp(prefix="chip_smoke_states_")
+    try:
+        data = lb.generate_pinned_data(workdir,
+                                       cfg.get("upscale_factor", 1.5))
+        batches = learn_epoch(cfg, data, device)
+        for k in range(1, states + 1):
+            t = time.perf_counter()
+            state_dir = os.path.join(workdir, f"state{k}")
+            os.makedirs(state_dir)
+            state = train_detector(
+                cfg, lb.train_dataset(cfg, data[1], data[2], LEARN_SEED),
+                work_dir=state_dir, seed=LEARN_SEED + k,
+                max_iters=LEARN_ITERS, log_interval=LEARN_ITERS,
+                device=device, stats={})
+            grads = check_learn_gradients(state, batches)["batches"]
+            del state
+            worst = [max(b["worst_grad_rel_err_by_module"].items(),
+                         key=lambda kv: kv[1]) for b in grads]
+            emit({"phase": "learn_state", "ok": True, "seed": LEARN_SEED + k,
+                  "worst_rel_err_by_batch": worst,
+                  "max_rel_err": max(v for _, v in worst),
+                  "relu_ties": sum(len(b["relu_ties"]) for b in grads),
+                  "align_max_abs_err": max(b["align_max_abs_err"]
+                                           for b in grads),
+                  "seconds": time.perf_counter() - t})
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+
 def run_learn_phases(device):
     """Phases 13-14: the learning protocol cut short, then serving its
     checkpoint, in a temporary work directory."""
@@ -3761,11 +4414,16 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--only",
                    choices=("train", "learn", "variants", "families",
-                            "multicard"),
+                            "multicard", "extras"),
                    help="run phases 1-2 and then only these")
     p.add_argument("--port", default=REPO,
                    help="the checkout whose mrcnn3d_torch is driven")
+    p.add_argument("--learn-states", type=int, default=0,
+                   help="with --only learn: hold this many more trained "
+                        "detectors to the learn gate")
     args = p.parse_args(argv)
+    if args.learn_states and args.only != "learn":
+        p.error("--learn-states goes with --only learn")
     port = os.path.abspath(args.port)
     t_start = time.perf_counter()
     require_card(port)
@@ -3802,12 +4460,15 @@ def main(argv=None):
     if args.only:
         if args.only == "learn":
             run_learn_phases(device)
+            run_learn_states(device, args.learn_states)
         elif args.only == "variants":
             run_variants_phase(device)
         elif args.only == "families":
             run_families_phase(device)
         elif args.only == "multicard":
             run_multicard_phase(device)
+        elif args.only == "extras":
+            run_extras_phase(device)
         else:
             run_train_phases(device)
         print(card, flush=True)
@@ -3873,11 +4534,13 @@ def main(argv=None):
 
     multicard = run_multicard_phase(device)
 
+    extras, extras_checks = run_extras_phase(device)
+
     emit(kernels_line(nms_calls, align_calls, backward_calls, step_calls,
                       main_path, train_calls, train_path, tile_calls,
                       wholevol, learn, learn_calls, serve, serve_calls,
                       variants, variant_checks, families, family_checks,
-                      multicard))
+                      multicard, extras, extras_checks))
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

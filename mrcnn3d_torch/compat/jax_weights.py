@@ -14,6 +14,12 @@ mmdet names.  Each transform is the inverse of one in
   FrozenBatchNorm scale / bias / mean / var
                                           -> weight / bias / running_*
 
+The backbone's names: ResNet3D's and ResNeXt3D's `layer{i}_{j}` blocks
+become `backbone.layer{i}.{j}` (conv1-2 of a basic block, conv1-3 of a
+bottleneck; flax's grouped kernel (k, k, k, I/groups, O) takes the same
+transpose as a plain one); UNet3D's `enc{i}_conv{j}`, `dec{i}_conv{j}`
+keep their names.
+
 The heads' names follow the model's kind.  The JAX package numbers its
 heads `bbox_head_{i}` / `mask_head_{i}` by scale in the two-stage types
 (port `bbox_head`, `bbox_head_2`, ...) but by stage in a cascade (port
@@ -90,15 +96,22 @@ def state_dict_from_jax(variables, roi_shape=(3, 7, 7)):
         return None if s is None else s[key]
 
     bp, bs = params["backbone"], sub(stats, "backbone")
-    conv(bp["conv1"], "backbone.conv1")
-    bn(bp["bn1"], sub(bs, "bn1"), "backbone.bn1")
+    if "conv1" in bp:
+        conv(bp["conv1"], "backbone.conv1")
+        bn(bp["bn1"], sub(bs, "bn1"), "backbone.bn1")
     for name in bp:
+        if name.startswith(("enc", "dec")):
+            # UNet3D's biased convs keep their names
+            conv(bp[name], f"backbone.{name}", True)
         if not name.startswith("layer"):
             continue
         li, bi = name[len("layer"):].split("_")
         dst = f"backbone.layer{li}.{bi}"
         p, s = bp[name], sub(bs, name)
+        # conv1-2 in a basic block, conv1-3 in a bottleneck
         for n in (1, 2, 3):
+            if f"conv{n}" not in p:
+                continue
             conv(p[f"conv{n}"], f"{dst}.conv{n}")
             bn(p[f"bn{n}"], sub(s, f"bn{n}"), f"{dst}.bn{n}")
         if "downsample_conv" in p:

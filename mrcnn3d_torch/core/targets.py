@@ -10,6 +10,9 @@ Semantics (reference mmdet):
   * RandomSampler: above quota, draws WITH replacement, then `.unique()`
     (sorted, deduplicated), the negative quota counting the deduplicated
     positives -- random_sampler.py:36-59, base_sampler.py:77-79;
+  * OHEMSampler / HardNegativeSampler: the JAX package's ranked stand-in
+    (`hard_negative_sample`): RandomSampler's positives, the negatives
+    with the highest proposal scores;
   * anchor_target_single -- anchor_target.py:126-201;
   * bbox targets -- bbox_target.py:34-58;
   * mask targets -- mask_target.py:17-51.
@@ -197,6 +200,30 @@ def random_sample(draws, site, assigned, num, pos_fraction):
                         neg_count)
 
 
+HARD_NEGATIVE_SAMPLERS = ("OHEMSampler", "HardNegativeSampler")
+
+
+def hard_negative_sample(draws, site, assigned, num, pos_fraction,
+                         neg_rank_key):
+    """The sampler with ranked negatives (`mrcnn3d/core/targets.py:
+    hard_negative_sample`, the stand-in for the reference's OHEM and
+    IoU-balanced samplers): the positives as `random_sample` draws them
+    (the same sites), the negatives the top (num - pos_count) candidates
+    by `neg_rank_key` (N,), ties to the lower index as `lax.top_k`
+    breaks them (a stable descending sort)."""
+    base = random_sample(draws, site, assigned, num, pos_fraction)
+    is_neg = assigned == 0
+    neg_inf = torch.tensor(float("-inf"), device=assigned.device)
+    ranked = torch.where(is_neg, neg_rank_key.float(), neg_inf)
+    top_vals, top_idx = torch.sort(ranked, descending=True, stable=True)
+    top_vals, top_idx = top_vals[:num], top_idx[:num]
+    neg_count = torch.minimum(is_neg.sum(), num - base.pos_count)
+    slots = torch.arange(num, device=assigned.device)
+    neg_mask = (slots < neg_count) & (top_vals > neg_inf)
+    return SampleResult(base.pos_inds, base.pos_mask, top_idx, neg_mask,
+                        base.pos_count, neg_count)
+
+
 def anchor_target_single(draws, site, anchors, inside, gt_boxes, gt_valid,
                          cfg, target_means, target_stds):
     """RPN anchor targets for one image over the flat multi-level anchors
@@ -304,12 +331,15 @@ def cat_samples(samples):
 
 def sample_rcnn_single(draws, site, proposals, proposal_valid, gt_boxes,
                        gt_valid, gt_labels, cfg, target_means, target_stds,
-                       add_gt_as_proposals=True):
+                       add_gt_as_proposals=True, proposal_scores=None):
     """Assign and sample proposals and build the R-CNN bbox targets of
-    one image (RandomSampler).  The R = sampler.num slots hold the
-    positives first (ascending), then the negatives, then padding; with
+    one image.  The R = sampler.num slots hold the positives first
+    (ascending), then the negatives, then padding; with
     `add_gt_as_proposals` the gt boxes lead the candidates and each is
-    assigned to itself (reference base_sampler.py:110-126)."""
+    assigned to itself (reference base_sampler.py:110-126).  Under
+    sampler.type OHEMSampler or HardNegativeSampler, with the proposals'
+    scores (N,) given, the negatives are ranked by them, the gt rows at
+    score 0 (`mrcnn3d/core/targets.py:377-388`); else RandomSampler."""
     sampler, assigner = cfg["sampler"], cfg["assigner"]
     num = sampler["num"]
     if add_gt_as_proposals:
@@ -325,7 +355,16 @@ def sample_rcnn_single(draws, site, proposals, proposal_valid, gt_boxes,
         self_assign = torch.arange(1, g + 1, device=cand.device)
         assigned = torch.cat([torch.where(gt_valid, self_assign, -1),
                               assigned[g:]])
-    res = random_sample(draws, site, assigned, num, sampler["pos_fraction"])
+    if (sampler.get("type", "RandomSampler") in HARD_NEGATIVE_SAMPLERS
+            and proposal_scores is not None):
+        scores = proposal_scores
+        if add_gt_as_proposals:
+            scores = torch.cat([scores.new_zeros(gt_boxes.shape[0]), scores])
+        res = hard_negative_sample(draws, site, assigned, num,
+                                   sampler["pos_fraction"], scores)
+    else:
+        res = random_sample(draws, site, assigned, num,
+                            sampler["pos_fraction"])
 
     p = res.pos_inds.shape[0]
     all_inds = torch.cat([res.pos_inds, res.neg_inds])

@@ -122,6 +122,7 @@ def build_detector(cfg, dtype=torch.float32, device=None, seed=0,
     model = Detector3D(
         depth=m["backbone"].get("depth", 50),
         base_width=m["backbone"].get("base_width", 16),
+        backbone_type=m["backbone"].get("type", "ResNet3D"),
         fpn_channels=m["neck"].get("out_channels", 64),
         num_outs=m["neck"].get("num_outs", 5),
         num_classes=bbox_head.get("num_classes", 2),

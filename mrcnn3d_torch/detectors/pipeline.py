@@ -500,13 +500,15 @@ def _mask_branch_loss(feats, samples, gt_masks, mask_roi_cfg, rcnn_cfg, fwd,
 
 
 def _sample_batch(draws, site, boxes, valid, gt_boxes, gt_valid, gt_labels,
-                  rcnn_cfg, means, stds, offset=0):
+                  rcnn_cfg, means, stds, offset=0, scores=None):
     """sample_rcnn_single per image, stacked; image i samples at
-    site + (offset + i,), its index in the global batch."""
+    site + (offset + i,), its index in the global batch; `scores` (B, N),
+    the proposals' scores, rank the negatives under an OHEM sampler."""
     return stack_samples([
         sample_rcnn_single(draws, site + (offset + i,), boxes[i], valid[i],
                            gt_boxes[i], gt_valid[i], gt_labels[i], rcnn_cfg,
-                           means, stds)
+                           means, stds, proposal_scores=(
+                               None if scores is None else scores[i]))
         for i in range(boxes.shape[0])
     ])
 
@@ -600,13 +602,16 @@ def forward_train(model, batch, cfg, anchor_sets, draws, mark=None,
         with torch.no_grad():
             # proposals carry no gradient (the reference's get_bboxes
             # runs on detached outputs)
-            pboxes, _, pvalid = gen_proposals(
+            pboxes, pscores, pvalid = gen_proposals(
                 [c.detach() for c in cls_outs], [r.detach() for r in reg_outs],
                 anchor_sets[s], _img_shape(imgs), train_cfg["rpn_proposal"],
                 means=rpn_means, stds=rpn_stds)
+        # the proposals' scores rank the negatives under an OHEM sampler
+        # (`mrcnn3d/detectors/pipeline.py:650`)
         samples_s.append(_sample_batch(
             draws, ("rcnn", s), pboxes, pvalid, gtb, gtv,
-            batch["gt_labels" + sfx], rcnn_cfg, means, stds, offset))
+            batch["gt_labels" + sfx], rcnn_cfg, means, stds, offset,
+            pscores))
         mark(f"rpn_targets_{s}")
     if not model.with_bbox:
         return _total(losses), losses

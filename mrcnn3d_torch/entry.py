@@ -53,6 +53,7 @@ import torch
 
 from .apis.tiled import tiled_inference
 from .core.targets import KeyedDraws, TorchDraws
+from .detectors.aug import aug_test
 from .detectors.build import anchor_cfgs, build_detector
 from .detectors.pipeline import anchor_sets_for, scale_shapes, simple_test
 from .train.step import create_train_state, train_step
@@ -88,6 +89,16 @@ class Flagship:
         sets = self.anchor_sets(scale_shapes(self.model, batch))
         with torch.inference_mode():
             return simple_test(self.model, batch, self.cfg, sets, mark=mark)
+
+    def aug_test(self, aug_batches, metas):
+        """`detectors.aug.aug_test` on this detector: test-time
+        augmentation over the views in `aug_batches` (each dict(imgs=
+        (B, 3, D, H, W))), described by `metas` (each dict(scale_factor,
+        flip)); detections in the original frame."""
+        sets = [self.anchor_sets([tuple(ab["imgs"].shape[2:])])[0]
+                for ab in aug_batches]
+        with torch.inference_mode():
+            return aug_test(self.model, aug_batches, metas, self.cfg, sets)
 
     def tiled(self, volume_sample, **kw):
         """`apis.tiled.tiled_inference` on this detector: per-class

@@ -19,6 +19,10 @@ HTCMaskHead3D per stage (`mask_head.{t}`) and, with `with_semantic`, the
 fused semantic head (`semantic_head`), whose `num_convs` is 4 whatever
 the config says, as the JAX package builds it.
 
+The backbone is `backbone_type`'s (`build_backbone`): ResNet3D at depth
+18, 34, 50, 101 or 152, ResNeXt3D or UNet3D; the FPN's in-channels
+follow its outputs.
+
 The module owns the parameters only; proposal decoding, RoIAlign, NMS
 and the stage logic live in `detectors/pipeline.py`.  Features run in
 `channels_last_3d` storage, so a level permuted to (B, D, H, W, C) is a
@@ -29,6 +33,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from .backbones_extra import ResNeXt3D, UNet3D
 from .fpn3d import FPN3D
 from .heads import (
     FCNMaskHead3D,
@@ -42,6 +47,24 @@ from .heads import (
 from .resnet3d import ResNet3D
 
 
+BACKBONES = ("ResNet3D", "ResNeXt3D", "UNet3D")
+
+
+def build_backbone(backbone_type, depth=50, base_width=16):
+    """The backbone of `backbone_type`, as `mrcnn3d/models/detector.py:
+    106-121` builds it: ResNeXt3D takes the stem width from base_width
+    (groups 32, 4 channels a group at 64 planes); UNet3D its defaults
+    (base_channels 16, 4 levels) whatever the config says."""
+    if backbone_type == "ResNet3D":
+        return ResNet3D(depth=depth, base_width=base_width)
+    if backbone_type == "ResNeXt3D":
+        return ResNeXt3D(depth=depth, width=base_width)
+    if backbone_type == "UNet3D":
+        return UNet3D()
+    raise KeyError(f"unknown backbone type {backbone_type!r}; the port "
+                   f"builds {BACKBONES}")
+
+
 def _scale_name(base, s):
     return base if s == 0 else f"{base}_{s + 1}"
 
@@ -51,6 +74,7 @@ class Detector3D(nn.Module):
         self,
         depth=50,
         base_width=16,
+        backbone_type="ResNet3D",
         fpn_channels=64,
         num_outs=5,
         num_classes=2,
@@ -89,7 +113,7 @@ class Detector3D(nn.Module):
         self.cascade_stages = cascade_stages
         self.htc = htc
         self.with_semantic = with_semantic
-        self.backbone = ResNet3D(depth=depth, base_width=base_width)
+        self.backbone = build_backbone(backbone_type, depth, base_width)
         self.neck = FPN3D(self.backbone.out_channels, fpn_channels, num_outs)
         roi_features = fpn_channels * roi_size_depth * roi_size * roi_size
         if single_stage:

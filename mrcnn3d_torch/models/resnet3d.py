@@ -1,7 +1,9 @@
 """ResNet3D backbone (NCDHW), reference mmdet/models/backbones/resnet3d.py.
 
-  * width-16 base: stage planes 16/32/64/128, Bottleneck x4 expansion,
-    stage outputs 64/128/256/512 channels;
+  * width-16 base: stage planes 16/32/64/128; Bottleneck x4 expansion
+    (depths 50, 101, 152: stage outputs 64/128/256/512 channels) or
+    BasicBlock x1 (depths 18, 34: 16/32/64/128), `ARCH_SETTINGS` as in
+    `mrcnn3d/models/resnet3d.py:29-35`;
   * stem Conv3d(3, 16, 7, stride (1, 2, 2), padding 3): no depth
     downsampling;
   * isotropic MaxPool3d(3, stride 2, padding 1);
@@ -22,31 +24,46 @@ from torch import nn
 
 from .layers import FrozenBatchNorm
 
-STAGE_BLOCKS = {50: (3, 4, 6, 3)}
+# depth -> (block, blocks per stage)
+ARCH_SETTINGS = {
+    18: ("basic", (2, 2, 2, 2)),
+    34: ("basic", (3, 4, 6, 3)),
+    50: ("bottleneck", (3, 4, 6, 3)),
+    101: ("bottleneck", (3, 4, 23, 3)),
+    152: ("bottleneck", (3, 8, 36, 3)),
+}
+
+
+def _downsample(cin, cout, stride):
+    return nn.Sequential(nn.Conv3d(cin, cout, 1, stride=stride, bias=False),
+                         FrozenBatchNorm(cout))
 
 
 class Bottleneck3D(nn.Module):
     expansion = 4
 
-    def __init__(self, cin, planes, stride=1, with_downsample=False):
+    def __init__(self, cin, planes, stride=1, with_downsample=False,
+                 groups=1, width=None):
         super().__init__()
         cout = planes * self.expansion
-        self.conv1 = nn.Conv3d(cin, planes, 1, bias=False)
-        self.bn1 = FrozenBatchNorm(planes)
+        width = width or planes
+        self.conv1 = nn.Conv3d(cin, width, 1, bias=False)
+        self.bn1 = FrozenBatchNorm(width)
         self.conv2 = nn.Conv3d(
-            planes, planes, 3, stride=stride, padding=1, bias=False
+            width, width, 3, stride=stride, padding=1, groups=groups,
+            bias=False
         )
-        self.bn2 = FrozenBatchNorm(planes)
-        self.conv3 = nn.Conv3d(planes, cout, 1, bias=False)
+        self.bn2 = FrozenBatchNorm(width)
+        self.conv3 = nn.Conv3d(width, cout, 1, bias=False)
         self.bn3 = FrozenBatchNorm(cout)
         self.downsample = (
-            nn.Sequential(
-                nn.Conv3d(cin, cout, 1, stride=stride, bias=False),
-                FrozenBatchNorm(cout),
-            )
-            if with_downsample
-            else None
+            _downsample(cin, cout, stride) if with_downsample else None
         )
+
+    @property
+    def strided(self):
+        """The conv that carries the block's stride."""
+        return self.conv2
 
     def forward(self, x, run=None):
         """run(op, x): how a conv with a depth extent is applied (the
@@ -57,6 +74,36 @@ class Bottleneck3D(nn.Module):
         out = torch.relu(self.bn1(self.conv1(x)))
         out = torch.relu(self.bn2(run(self.conv2, out)))
         out = self.bn3(self.conv3(out))
+        return torch.relu(out + identity)
+
+
+class BasicBlock3D(nn.Module):
+    """Two 3x3x3 convs, the stride on the first (`mrcnn3d/models/
+    resnet3d.py:209-250`; its conv2 pads "SAME", at stride 1 padding 1)."""
+
+    expansion = 1
+
+    def __init__(self, cin, planes, stride=1, with_downsample=False):
+        super().__init__()
+        self.conv1 = nn.Conv3d(cin, planes, 3, stride=stride, padding=1,
+                               bias=False)
+        self.bn1 = FrozenBatchNorm(planes)
+        self.conv2 = nn.Conv3d(planes, planes, 3, padding=1, bias=False)
+        self.bn2 = FrozenBatchNorm(planes)
+        self.downsample = (
+            _downsample(cin, planes, stride) if with_downsample else None
+        )
+
+    @property
+    def strided(self):
+        return self.conv1
+
+    def forward(self, x, run=None):
+        run = run or _call
+        identity = x if self.downsample is None else self.downsample[1](
+            run(self.downsample[0], x))
+        out = torch.relu(self.bn1(run(self.conv1, x)))
+        out = self.bn2(run(self.conv2, out))
         return torch.relu(out + identity)
 
 
@@ -93,36 +140,39 @@ class ResNet3D(nn.Module):
 
     def __init__(self, depth=50, base_width=16):
         super().__init__()
-        if depth not in STAGE_BLOCKS:
-            raise NotImplementedError(
-                f"ResNet3D depth {depth}: the port has depth 50 only "
-                "(ROADMAP Queue A item 11 ports the other depths)"
-            )
+        if depth not in ARCH_SETTINGS:
+            raise KeyError(f"{type(self).__name__} depth {depth}: the "
+                           f"depths are {sorted(ARCH_SETTINGS)}")
+        kind, stage_blocks = self.arch(depth)
         self.base_width = base_width
         self.conv1 = nn.Conv3d(
             3, base_width, 7, stride=(1, 2, 2), padding=3, bias=False
         )
         self.bn1 = FrozenBatchNorm(base_width)
         self.maxpool = nn.MaxPool3d(3, stride=2, padding=1)
+        expansion = 4 if kind == "bottleneck" else 1
         cin = base_width
-        for i, n in enumerate(STAGE_BLOCKS[depth]):
+        for i, n in enumerate(stage_blocks):
             planes = base_width * 2**i
             blocks = []
             for j in range(n):
                 stride = self.strides[i] if j == 0 else 1
-                blocks.append(
-                    Bottleneck3D(
-                        cin,
-                        planes,
-                        stride,
-                        with_downsample=(
-                            j == 0 and (stride != 1 or cin != planes * 4)
-                        ),
-                    )
-                )
-                cin = planes * 4
+                # the downsample's rule of the JAX stage loop (:393)
+                down = j == 0 and (stride != 1 or cin != planes * expansion)
+                blocks.append(self.make_block(kind, cin, planes, stride,
+                                              down))
+                cin = planes * expansion
             setattr(self, f"layer{i + 1}", nn.Sequential(*blocks))
-        self.out_channels = [base_width * 4 * 2**i for i in range(4)]
+        self.out_channels = [base_width * expansion * 2**i for i in range(4)]
+
+    @staticmethod
+    def arch(depth):
+        """(block kind, blocks per stage) of `depth`."""
+        return ARCH_SETTINGS[depth]
+
+    def make_block(self, kind, cin, planes, stride, with_downsample):
+        block = Bottleneck3D if kind == "bottleneck" else BasicBlock3D
+        return block(cin, planes, stride, with_downsample)
 
     def forward(self, x):
         """The four stage outputs of `x`; with `depth_slabs` set, each
@@ -136,7 +186,7 @@ class ResNet3D(nn.Module):
         outs = []
         for i in range(4):
             layer = getattr(self, f"layer{i + 1}")
-            x = slabs.settle(x, layer[0].conv2)
+            x = slabs.settle(x, layer[0].strided)
             for block in layer:
                 x = block(x, slabs.apply)
             outs.append(slabs.whole(x))

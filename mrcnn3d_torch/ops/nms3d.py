@@ -214,3 +214,55 @@ def nms_3d_overlap_numpy(dets, iou_thr):
             idxs, np.concatenate(([last], np.where(overlap > iou_thr)[0]))
         )
     return pick
+
+
+def soft_nms_3d(dets, iou_thr=0.3, method="linear", sigma=0.5,
+                min_score=1e-3):
+    """Soft-NMS of 6-DoF boxes on the host (`mrcnn3d/ops/nms3d.py:
+    soft_nms_3d_numpy`; the reference's Cython soft_nms_cpu, 2-D there):
+    repeatedly take the best row, then decay the others' scores by their
+    symmetric volume IoU (+1 extents) with it -- `linear` by 1 - IoU above
+    `iou_thr`, `gaussian` by exp(-IoU^2 / sigma), `naive` to 0 above
+    `iou_thr` (hard NMS) -- and drop rows below `min_score`.
+
+    dets (N, 7) [x1, y1, x2, y2, z1, z2, score], numpy or a tensor on any
+    device.  Returns (new_dets (K, 7) float32 numpy, kept original
+    indices in pick order)."""
+    if isinstance(dets, torch.Tensor):
+        dets = dets.detach().float().cpu().numpy()
+    dets = np.asarray(dets, np.float32).copy()
+    idxs = np.arange(dets.shape[0])
+    out, out_idx = [], []
+    while len(dets):
+        top = int(np.argmax(dets[:, 6]))
+        best = dets[top].copy()
+        out.append(best)
+        out_idx.append(int(idxs[top]))
+        dets = np.delete(dets, top, axis=0)
+        idxs = np.delete(idxs, top)
+        if not len(dets):
+            break
+        xa = np.maximum(best[0], dets[:, 0])
+        ya = np.maximum(best[1], dets[:, 1])
+        za = np.maximum(best[4], dets[:, 4])
+        xb = np.minimum(best[2], dets[:, 2])
+        yb = np.minimum(best[3], dets[:, 3])
+        zb = np.minimum(best[5], dets[:, 5])
+        inter = (np.maximum(0, xb - xa + 1) * np.maximum(0, yb - ya + 1)
+                 * np.maximum(0, zb - za + 1))
+        va = ((best[2] - best[0] + 1) * (best[3] - best[1] + 1)
+              * (best[5] - best[4] + 1))
+        vb = ((dets[:, 2] - dets[:, 0] + 1) * (dets[:, 3] - dets[:, 1] + 1)
+              * (dets[:, 5] - dets[:, 4] + 1))
+        iou = inter / (va + vb - inter)
+        if method == "linear":
+            decay = np.where(iou > iou_thr, 1.0 - iou, 1.0)
+        elif method == "gaussian":
+            decay = np.exp(-(iou**2) / sigma)
+        else:  # naive: hard NMS
+            decay = (iou <= iou_thr).astype(np.float32)
+        dets[:, 6] *= decay
+        keep = dets[:, 6] >= min_score
+        dets = dets[keep]
+        idxs = idxs[keep]
+    return (np.stack(out) if out else np.zeros((0, 7), np.float32)), out_idx

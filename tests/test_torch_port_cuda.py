@@ -619,3 +619,116 @@ def test_nms_sigmoid_classwise_4256_rows(cuda):
     assert torch.equal(got, nms3d.greedy_scan_plain(sboxes, svalid, counts,
                                                     0.5))
     assert 0 < int(got.sum()) < int(valid.sum())
+
+
+# ---------------------------------------------------------------------------
+# the other backbones' pyramids
+# ---------------------------------------------------------------------------
+
+
+# UNet3D's taps: strides 1, 2, 4, 8 on every axis
+UNET_STRIDES = [1, 2, 4, 8]
+
+
+def _unet_levels(gen, dtype, device, shape):
+    d, h, w = shape
+    return [torch.randn((1, d // s, h // s, w // s, 64), generator=gen,
+                        device=device).to(dtype) for s in UNET_STRIDES]
+
+
+def _far_rois(gen, n, shape, device):
+    """Rois over the whole volume, half of them in its last quarter of
+    depth (the far end of each level's storage)."""
+    d, h, w = shape
+    u = torch.rand((n, 6), generator=gen, device=device)
+    x1, y1 = u[:, 0] * (w - 40), u[:, 1] * (h - 40)
+    z1 = u[:, 2] * (d - 8)
+    z1[: n // 2] = d * 0.75 + u[: n // 2, 2] * (d * 0.25 - 8)
+    size = 4 + u[:, 3] * 32
+    rois = torch.stack([torch.zeros_like(x1), x1, y1, x1 + size, y1 + size,
+                        z1, z1 + 2 + u[:, 4] * 6], 1)
+    return rois
+
+
+@pytest.mark.parametrize("out,out_d", [(7, 3), (14, 10)])
+def test_roi_align_unet_level0_past_2_31(cuda, out, out_d):
+    """K2 on UNet3D's pyramid of the 96x768x768 twin in bf16 (level 0,
+    64 channels at stride 1: 3.6e9 elements, past 2^31), at UNet3D's own
+    strides, rois reaching the far end of each level: against the plain
+    version."""
+    shape = (96, 768, 768)
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    feats = _unet_levels(gen, torch.bfloat16, cuda, shape)
+    assert feats[0].numel() > 2**31
+    rois = _far_rois(gen, 500, shape, cuda)
+    valid = torch.ones(500, dtype=torch.bool, device=cuda)
+    levels = ra.map_roi_levels(rois, 4)
+    assert int((levels == 0).sum()) > 100
+    args = (feats, rois, levels, valid, out, out_d, UNET_STRIDES,
+            UNET_STRIDES, 2)
+    got = ra.roi_align_3d_cuda(*args)
+    assert _align_matches(got, ra.roi_align_3d_plain(*args), 2e-2)
+
+
+def test_roi_align_backward_unet_level0(cuda):
+    """K2's backward on UNet3D's pyramid of the 64x512x512 headline volume
+    (level 0: 1.07e9 elements, 4.3 GB of float32 gradient), bf16 levels,
+    at mask and bbox geometry, rois reaching the far end."""
+    shape = (64, 512, 512)
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    shapes = [tuple(f.shape) for f in
+              _unet_levels(gen, torch.bfloat16, cuda, shape)]
+    rois = _far_rois(gen, 500, shape, cuda)
+    valid = torch.ones(500, dtype=torch.bool, device=cuda)
+    levels = ra.map_roi_levels(rois, 4)
+    for out, out_d in ((7, 3), (14, 10)):
+        grad = torch.randn((500, 64, out_d, out, out), generator=gen,
+                           device=cuda).to(torch.bfloat16)
+        args = (grad, shapes, rois, levels, valid, out, out_d, UNET_STRIDES,
+                UNET_STRIDES, 2)
+        _backward_matches(ra.roi_align_3d_backward_cuda(*args),
+                          ra.roi_align_3d_backward_plain(*args))
+
+
+def test_roi_align_resnext_pyramid(cuda):
+    """K2 and its backward on the FPN pyramid of the flagship with
+    ResNeXt3D-50 at full width (seed 0's weights) on a 64x512x512 volume,
+    bf16, at bbox and mask geometry: against the plain versions."""
+    import chip_smoke
+    from mrcnn3d_torch.entry import build
+
+    cfg = chip_smoke.backbone_recipe(chip_smoke.main_config(),
+                                     "ResNeXt3D-50")
+    det = build(cfg, device=cuda, dtype=torch.bfloat16, seed=0)
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    x = torch.randn((1, 3, 64, 512, 512), generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    with torch.inference_mode():
+        feats = ra.channels_last_levels(det.model.extract_feat(x)[:4])
+    boxes, _, valid = chip_smoke.proposal_boxes(gen, 1000, (64, 512, 512),
+                                                cuda)
+    rois = torch.cat([torch.zeros_like(boxes[:, :1]), boxes], 1)
+    levels = ra.map_roi_levels(rois, 4)
+    shapes = [tuple(f.shape) for f in feats]
+    for out, out_d in ((7, 3), (14, 10)):
+        args = (feats, rois, levels, valid, out, out_d, STRIDES, STRIDES_D,
+                2)
+        assert _align_matches(ra.roi_align_3d_cuda(*args),
+                              ra.roi_align_3d_plain(*args), 2e-2)
+        grad = torch.randn((1000, 64, out_d, out, out), generator=gen,
+                           device=cuda).to(torch.bfloat16)
+        bargs = (grad, shapes, rois, levels, valid, out, out_d, STRIDES,
+                 STRIDES_D, 2)
+        _backward_matches(ra.roi_align_3d_backward_cuda(*bargs),
+                          ra.roi_align_3d_backward_plain(*bargs))
+
+
+@pytest.mark.parametrize("name", ["ResNet3D-18", "ResNeXt3D-50", "UNet3D",
+                                  "OHEM", "TTA"])
+def test_extras_small_card_vs_cpu(cuda, name):
+    """Each phase-18 run at the narrow widths, inference and (but for
+    TTA) a train step, on the card against the CPU, with its launches a
+    step as chip_smoke.EXTRAS_LAUNCHES says."""
+    import chip_smoke
+
+    assert chip_smoke.check_small_extra(cuda, name)["detections"] > 0

@@ -2,7 +2,8 @@
 (its training, whole-volume, evaluation, data, API, tool and parallel
 modules included), every 3-D two-stage variant and every single-stage and
 cascade family builds and takes a CPU step and an inference without
-them, the 2-D and SSD types (not yet ported) raise naming their ROADMAP
+them, the flagship runs inference with every backbone, test-time
+augmentation, soft-NMS, RoIPool3D, VOC mAP and recall run, the 2-D and SSD types (not yet ported) raise naming their ROADMAP
 item, and its entry points never fall back to the CPU on their
 own."""
 import os
@@ -38,7 +39,9 @@ _SCRIPT = textwrap.dedent(
                  "apis.serve", "tools.train", "tools.test",
                  "tools.coco_eval", "tools.serve", "tools.test_images",
                  "tools.learning_bench", "parallel.mesh", "parallel.batched",
-                 "parallel.spatial", "parallel.launch"):
+                 "parallel.spatial", "parallel.launch",
+                 "models.backbones_extra", "detectors.aug", "ops.roi_pool3d",
+                 "eval.mean_ap", "eval.recall", "eval.class_names"):
         assert "mrcnn3d_torch." + name in names, name
     import chip_smoke
     from mrcnn3d_torch.entry import build_trainer
@@ -116,6 +119,32 @@ _SCRIPT = textwrap.dedent(
         if kind == "HybridTaskCascade3D":
             per_class, segms = swept
             assert len(segms[0]) == len(per_class[0]) > 0, kind
+    for name in chip_smoke.BACKBONES:
+        bcfg = chip_smoke.backbone_recipe(chip_smoke.small_config(), name)
+        bdet = build(bcfg, device="cpu", budgets=16)
+        shape = (16, 32, 32) if name == "UNet3D" else (8, 32, 32)
+        out = bdet.run(torch.randn(1, 3, *shape),
+                       torch.randn(1, 3, *(n * 3 // 2 for n in shape)))
+        assert out[0].shape == (1, 16, 7), name
+    tcfg = chip_smoke.variant_recipe(chip_smoke.small_config(), "MaskRCNN3D")
+    tdet = build(tcfg, device="cpu", budgets=16)
+    x = torch.randn(1, 3, 8, 32, 32)
+    tta = tdet.aug_test([dict(imgs=x), dict(imgs=x.flip(-1))],
+                        [dict(scale_factor=1.0, flip=False),
+                         dict(scale_factor=1.0, flip=True)])
+    assert tta["dets"].shape == (1, 16, 7) and "mask_probs" in tta
+    from mrcnn3d_torch.eval.mean_ap import eval_map_3d
+    from mrcnn3d_torch.eval.recall import eval_recalls_3d
+    from mrcnn3d_torch.ops.nms3d import soft_nms_3d
+    from mrcnn3d_torch.ops.roi_pool3d import roi_pool_3d
+    dets = tta["dets"][0][tta["valid"][0]]
+    kept, _ = soft_nms_3d(dets, method="gaussian")
+    gt = [dets[:1, :6].numpy()]
+    assert eval_map_3d([kept], gt)[0] > 0
+    assert eval_recalls_3d(gt, [dets.numpy()], (1,)).shape == (1, 1)
+    rois = torch.cat([torch.zeros(len(dets), 1), dets[:, :6]], 1)
+    assert roi_pool_3d(torch.randn(1, 4, 8, 32, 32), rois, 7, 3, 1.0,
+                       1.0).shape == (len(dets), 4, 3, 7, 7)
     for kind, item in (("MaskRCNN", "11.8"), ("SSD", "11.8")):
         vcfg = chip_smoke.small_config()
         vcfg.model["type"] = kind

@@ -15,6 +15,12 @@ branch at ties) brings the two back within rounding, and reports the tie,
 which `check_relu_ties` accepts; a branch flipped at a unit far from 0 it
 refuses (`test_a_flip_off_a_tie_fails_the_gate`).
 
+Beside the ties, the check pins cuDNN to its deterministic algorithms in
+both passes (`PinnedCudnn`), holds every K2 forward launch of the kernel
+pass against its plain version at K2's own gate (`AlignAgainstPlain`,
+`check_align_output`), and on a failure reads which kernel's plain
+version alone reproduces it (`PlainKernels` over one wrapper).
+
 The serve phase compared the served detections with run_inference's and
 failed as vacuous when 200 iterations left no score above the config's
 score_thr; the comparison now also serves under `chip_smoke.serve_config`,
@@ -25,10 +31,16 @@ import pytest
 import torch
 
 from chip_smoke import (
+    ALIGN_TOL,
+    main,
     PIPELINE_ATOL,
     SERVE_MAX_DETS,
     TIE_TOL,
+    AlignAgainstPlain,
+    PinnedCudnn,
+    PlainKernels,
     ReluBranches,
+    check_align_output,
     check_relu_ties,
     serve_config,
     small_config,
@@ -36,6 +48,7 @@ from chip_smoke import (
 from mrcnn3d_torch.apis.test_api import InferenceRunner
 from mrcnn3d_torch.entry import build
 from mrcnn3d_torch.models.heads import FCNMaskHead3D
+from mrcnn3d_torch.ops import nms3d, roi_align3d
 from mrcnn3d_torch.ops.losses import mask_cross_entropy
 
 
@@ -159,3 +172,95 @@ def test_serve_config_is_never_vacuous():
     dets, _, valid = InferenceRunner(served, det.model)(sample)[:3]
     assert int(valid.sum()) == SERVE_MAX_DETS
     assert (dets[valid, 6] < 0.2).all()
+
+
+def _align_args():
+    """A one-level align's arguments (roi_align_3d_plain's), two rois."""
+    g = torch.Generator().manual_seed(4)
+    feats = [torch.randn(1, 4, 8, 8, 4, generator=g)]
+    rois = torch.tensor([[0, 1.0, 2.0, 20.0, 25.0, 0.0, 5.0],
+                         [0, 4.0, 3.0, 12.0, 30.0, 1.0, 7.0]])
+    return (feats, rois, torch.zeros(2, dtype=torch.int32),
+            torch.ones(2, dtype=torch.bool), 7, 3, [4], [2], 2)
+
+
+def test_align_gate_float32_and_bfloat16():
+    want = torch.linspace(-8.0, 8.0, 64)
+    assert check_align_output(want.clone(), want, "equal") == (
+        0.0, ALIGN_TOL["float32"])
+    got = want + 0.5 * ALIGN_TOL["float32"]
+    # half the gate, to the float32 rounding of values up to 8
+    assert check_align_output(got, want, "within")[0] == pytest.approx(
+        0.5 * ALIGN_TOL["float32"], rel=1e-2)
+    with pytest.raises(AssertionError, match="1 values differ"):
+        bad = want.clone()
+        bad[3] += 2 * ALIGN_TOL["float32"]
+        check_align_output(bad, want, "one past")
+    # bfloat16: one step of the value's binade passes, two do not
+    w16 = torch.tensor([3.0, 100.0], dtype=torch.bfloat16)
+    step = torch.tensor([2.0 ** -6, 2.0 ** -1])  # 2^(e - 8), e = 2 and 7
+    check_align_output((w16.float() + step).to(torch.bfloat16), w16, "step")
+    with pytest.raises(AssertionError, match="one bf16 step"):
+        check_align_output((w16.float() + 2 * step).to(torch.bfloat16), w16,
+                           "two steps")
+
+
+def test_align_against_plain_holds_each_launch(monkeypatch):
+    """The learn check's K2 wrapper passes a launch equal to its plain
+    version and refuses one that a value moves past K2's gate."""
+    args = _align_args()
+    plain = roi_align3d.roi_align_3d_plain
+    monkeypatch.setattr(roi_align3d, "roi_align_3d_cuda", plain)
+    with AlignAgainstPlain() as aligns:
+        out = roi_align3d.roi_align_3d_cuda(*args)
+        roi_align3d.roi_align_3d_cuda(*args)
+    assert roi_align3d.roi_align_3d_cuda is plain  # restored
+    assert aligns.launches == 2 and aligns.max_abs_err == 0.0
+    assert torch.equal(out, plain(*args))
+
+    def off(*a):
+        got = plain(*a)
+        got.view(-1)[5] += 10 * ALIGN_TOL["float32"]
+        return got
+
+    monkeypatch.setattr(roi_align3d, "roi_align_3d_cuda", off)
+    with pytest.raises(AssertionError, match="K2 in the learn check"):
+        with AlignAgainstPlain():
+            roi_align3d.roi_align_3d_cuda(*args)
+    assert roi_align3d.roi_align_3d_cuda is off
+
+
+def test_plain_kernels_swaps_the_named_wrappers():
+    saved = {a: getattr(m, a) for m, a in (
+        (nms3d, "greedy_scan_cuda"), (roi_align3d, "roi_align_3d_cuda"),
+        (roi_align3d, "roi_align_3d_backward_cuda"))}
+    with PlainKernels(("roi_align_3d_backward_cuda",)):
+        assert roi_align3d.roi_align_3d_backward_cuda is \
+            roi_align3d.roi_align_3d_backward_plain
+        assert roi_align3d.roi_align_3d_cuda is saved["roi_align_3d_cuda"]
+        assert nms3d.greedy_scan_cuda is saved["greedy_scan_cuda"]
+    with PlainKernels():
+        assert roi_align3d.roi_align_3d_cuda is roi_align3d.roi_align_3d_plain
+        assert nms3d.greedy_scan_cuda is nms3d.greedy_scan_plain
+    assert saved == {a: getattr(m, a) for m, a in (
+        (nms3d, "greedy_scan_cuda"), (roi_align3d, "roi_align_3d_cuda"),
+        (roi_align3d, "roi_align_3d_backward_cuda"))}
+
+
+def test_pinned_cudnn_restores_the_flags():
+    cudnn = torch.backends.cudnn
+    saved = (cudnn.benchmark, cudnn.deterministic)
+    try:
+        cudnn.benchmark, cudnn.deterministic = True, False
+        with PinnedCudnn():
+            assert (cudnn.benchmark, cudnn.deterministic) == (False, True)
+        assert (cudnn.benchmark, cudnn.deterministic) == (True, False)
+    finally:
+        cudnn.benchmark, cudnn.deterministic = saved
+
+
+def test_learn_states_go_with_the_learn_phase(capsys):
+    with pytest.raises(SystemExit) as exc:
+        main(["--learn-states", "2"])
+    assert exc.value.code == 2
+    assert "--learn-states goes with --only learn" in capsys.readouterr().err

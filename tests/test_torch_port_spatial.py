@@ -24,6 +24,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
+from jax.experimental.compilation_cache import compilation_cache
 
 import chip_smoke as cs
 from mrcnn3d.models.resnet3d import ResNet3D as JResNet3D
@@ -95,7 +96,11 @@ def _backbone_rank(rank, world, weights, x, width, grads):
 
 
 def test_depth_sharded_backbone_matches_jax(tmp_path):
+    # the mesh program compiles fresh: XLA:CPU aborts reloading some
+    # multi-device executables, and JAX keeps a process's first decision
+    # to use the cache unless it is reset
     jax.config.update("jax_enable_compilation_cache", False)
+    compilation_cache.reset_cache()
     try:
         m = JResNet3D(depth=50, base_width=8)
         x = np.random.RandomState(0).randn(1, 16, 32, 32, 3).astype(
@@ -108,6 +113,7 @@ def test_depth_sharded_backbone_matches_jax(tmp_path):
         want = [np.moveaxis(np.asarray(w), -1, 1) for w in want]
     finally:
         jax.config.update("jax_enable_compilation_cache", True)
+        compilation_cache.reset_cache()
     xt = torch.from_numpy(np.moveaxis(x, -1, 1).copy())
     out = spawn(_backbone_rank, 2,
                 (_backbone_weights(variables), xt, 8, False),
