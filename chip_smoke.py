@@ -44,8 +44,12 @@ Phases, each printing one JSON line with its seconds:
                  versions) from the same weights, batch and draws: every
                  anchor target and R-CNN sample (labels, assignments,
                  counts) equal, losses within 2e-3, each parameter's
-                 update within 2e-3 of the CPU update's largest magnitude
-                 (2e-2 for the stem conv, under the stem max-pool).
+                 update within 2e-3 of the CPU update's largest magnitude;
+                 the CPU pass's max-pools take the card's argmax per
+                 window and its relus the card's branch per unit, each
+                 window or unit where the two differ proven a tie (both
+                 values, or the unit's input, within 1e-4 of the call's
+                 largest input).
   8. train    -- the flagship's train step at full width and bench.py's
                  training geometry: a 64x128x128 crop plus its 96x192x192
                  twin, batch 2, 16 gt boxes and masks per image (bench.py's
@@ -195,6 +199,31 @@ Phases, each printing one JSON line with its seconds:
                  eval_recalls_3d of RPN3D's proposals, soft_nms_3d on the
                  TTA pre-NMS rows, roi_pool_3d on a full-width FPN level
                  against its numpy oracle (exactly).
+ 19. two_d    -- the 2-D legacy family (TWO_D: RPN, FasterRCNN,
+                 FastRCNN, MaskRCNN, RetinaNet, CascadeRCNN,
+                 HybridTaskCascade, each by two_d_config from
+                 configs/faster_rcnn_2d.py): each at the JAX tests'
+                 narrow recipe (ResNet-18 at width 8, FPN 32, 3 classes,
+                 budgets 32, a 1x64x64 image) on the card against the
+                 CPU (inference as in phase 15, one train step as in
+                 phase 7 with the max-pool ties replayed), then at full
+                 width, bf16: ResNet-50 at base width 64, FPN 256, 81
+                 classes, the config's budgets, R-CNN score threshold 0;
+                 inference on one 1x800x1344 image (FastRCNN on 1000
+                 precomputed proposals) and the train step on 2 images
+                 with 20 gt each (masks for MaskRCNN and HTC), 1 warm-up
+                 and 3 timed each, peak memory, the counters zeroed just
+                 before and read just after (TWO_D_LAUNCHES a step); the
+                 launches of one inference and one train step of
+                 FasterRCNN and MaskRCNN (the 80-segment class-wise K1,
+                 the depth-1 K2 and its backward) each against its plain
+                 version and timed alone; the flagship's train step at
+                 bench.py's training geometry with and without
+                 backbone.with_cp (time, peak memory, first updates
+                 within 2e-3); the 2-D host modules on the card:
+                 load_reference_checkpoint of a file it writes, DCN's
+                 forward and backward on a full-width FPN level against
+                 the CPU.
 Then the kernels line, the card line and, last, the result line
 {"ok": true, "device": {...}}.  Any failure raises: the exit code is then
 not 0 and no result line is printed.
@@ -942,6 +971,173 @@ def family_train_batch(seed, type_name):
     return batch
 
 
+# the 2-D legacy family (ROADMAP A11.8 (a)): depth-1 images through the
+# shipped 2-D config, each type by its recipe (two_d_config)
+TWO_D_CONFIG = os.path.join(REPO, "configs", "faster_rcnn_2d.py")
+TWO_D = ("RPN", "FasterRCNN", "FastRCNN", "MaskRCNN", "RetinaNet",
+         "CascadeRCNN", "HybridTaskCascade")
+TWO_D_MASKED = ("MaskRCNN", "HybridTaskCascade")
+TWO_D_CASCADES = ("CascadeRCNN", "HybridTaskCascade")
+# the shipped config's image: img_scale (1333, 800) padded to its
+# size_divisor 32, one depth slice
+TWO_D_SHAPE = (1, 800, 1344)
+# the narrow image, as the JAX tests' (tests/test_2d_family.py:59)
+TWO_D_SMALL_SHAPE = (1, 64, 64)
+
+
+def two_d_config(type_name, config_cls=None):
+    """A 2-D type's full config from configs/faster_rcnn_2d.py (as
+    shipped for FasterRCNN, FastRCNN and RPN): MaskRCNN and HTC add the
+    JAX tests' mask recipe (tests/test_2d_family.py:143-151: a 14x14x1
+    align, 28x28x1 targets) at the config's widths, four convs, masks on;
+    RetinaNet takes configs/retinanet_3d.py's focal head, assigner and
+    test budgets over the config's 2-D anchors; the cascades take
+    mmdet's three stages (IoU 0.5, 0.6, 0.7; loss weights 1, 0.5, 0.25)
+    over the config's R-CNN sampler, and HTC the semantic branch of the
+    JAX tests' HTC recipe (3 classes; stride 8, depth 1)."""
+    if config_cls is None:
+        from mrcnn3d_torch.utils.config import Config as config_cls
+    cfg = config_cls.fromfile(TWO_D_CONFIG)
+    m = cfg.model
+    m["type"] = type_name
+    fpn = m["neck"]["out_channels"]
+    classes = m["bbox_head"]["num_classes"]
+    strides = m["bbox_roi_extractor"]["featmap_strides"]
+    if type_name in TWO_D_MASKED:
+        m["mask_roi_extractor"] = dict(
+            roi_layer=dict(out_size=14, out_size_depth=1, sample_num=2),
+            out_channels=fpn, featmap_strides=list(strides),
+            featmap_strides_depth=[1] * len(strides))
+        m["mask_head"] = dict(num_convs=4, conv_out_channels=fpn,
+                              num_classes=classes)
+        cfg.test_cfg["return_bbox_only"] = False
+    if type_name == "RetinaNet":
+        m.pop("bbox_roi_extractor")
+        m["bbox_head"] = dict(num_classes=classes, stacked_convs=4)
+        cfg.train_cfg = dict(rpn=dict(
+            assigner=dict(type="MaxIoUAssigner", pos_iou_thr=0.5,
+                          neg_iou_thr=0.4, min_pos_iou=0.0,
+                          ignore_iof_thr=-1),
+            allowed_border=-1, gamma=2.0, alpha=0.25, pos_weight=-1,
+            smoothl1_beta=1 / 9.0, debug=False))
+        cfg.test_cfg = dict(
+            rpn=dict(nms_pre=1000),
+            rcnn=dict(score_thr=0.05, nms=dict(type="nms", iou_thr=0.5),
+                      max_per_img=100, mask_thr_binary=0.5),
+            return_bbox_only=True)
+    if type_name in TWO_D_CASCADES:
+        base = dict(cfg.train_cfg["rcnn"])
+        stages = []
+        for thr in (0.5, 0.6, 0.7):
+            st = dict(base)
+            st["assigner"] = dict(base["assigner"], pos_iou_thr=thr,
+                                  neg_iou_thr=thr, min_pos_iou=thr)
+            stages.append(st)
+        cfg.train_cfg["rcnn"] = stages
+        cfg.train_cfg["stage_loss_weights"] = [1, 0.5, 0.25]
+        m["bbox_head"]["reg_class_agnostic"] = True
+    if type_name == "HybridTaskCascade":
+        m["semantic_head"] = dict(
+            type="FusedSemanticHead", num_ins=5, fusion_level=1,
+            num_convs=4, num_classes=3, ignore_label=255, loss_weight=0.2)
+        m["semantic_roi_extractor"] = dict(
+            roi_layer=dict(out_size=14, out_size_depth=1, sample_num=2),
+            out_channels=fpn, featmap_strides=[8],
+            featmap_strides_depth=[1])
+        m["semantic_fusion"] = ("bbox", "mask")
+        m["interleaved"] = True
+        m["mask_info_flow"] = True
+    return cfg
+
+
+def two_d_narrow(cfg, budget=32):
+    """A 2-D config cut in place to the JAX tests' cfg2d (tests/
+    test_2d_family.py:37-51): ResNet-18 at base width 8, FPN 32, fcs 64,
+    3 classes, `budget` proposals an image (and anchors kept per level),
+    the RPN sampler 64 anchors and each R-CNN stage `budget` // 2 rois an
+    image, `budget` // 2 detections; two mask convs."""
+    m = cfg.model
+    m["backbone"].update(depth=18, base_width=8)
+    m["neck"]["out_channels"] = 32
+    m["bbox_head"]["num_classes"] = 3
+    if "fc_out_channels" in m["bbox_head"]:
+        m["bbox_head"]["fc_out_channels"] = 64
+    if "mask_head" in m:
+        m["mask_head"].update(num_convs=2, conv_out_channels=32,
+                              num_classes=3)
+    tc = cfg.test_cfg
+    tc["rcnn"]["max_per_img"] = budget // 2
+    tc["rpn"]["nms_pre"] = budget
+    if m["type"] != "RetinaNet":
+        for k in ("nms_post", "max_num"):
+            tc["rpn"][k] = budget
+        for k in ("nms_pre", "nms_post", "max_num"):
+            cfg.train_cfg["rpn_proposal"][k] = budget
+        cfg.train_cfg["rpn"]["sampler"]["num"] = 64
+        rcnn = cfg.train_cfg["rcnn"]
+        for rc in rcnn if isinstance(rcnn, (list, tuple)) else [rcnn]:
+            rc["sampler"]["num"] = budget // 2
+    return cfg
+
+
+def two_d_inputs(seed, shape=TWO_D_SMALL_SHAPE, proposals=False):
+    """numpy NCDHW depth-1 images; with `proposals`, FastRCNN's 12
+    precomputed proposals an image (z [0, 0]), the last two invalid."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    _, h, w = shape
+    batch = {"imgs": rng.randn(1, 3, *shape).astype(np.float32)}
+    if proposals:
+        m = 12
+        xy = rng.uniform(0, 0.6, (m, 2)) * np.array([w, h])
+        size = rng.uniform(0.1, 0.35, (m, 2)) * np.array([w, h])
+        props = np.concatenate([xy, np.minimum(xy + size, [w - 1, h - 1]),
+                                np.zeros((m, 2))], 1)
+        valid = np.ones(m, bool)
+        valid[-2:] = False
+        batch.update(proposals=props[None].astype(np.float32),
+                     proposals_valid=valid[None])
+    return batch
+
+
+def two_d_train_batch(seed, type_name, shape=TWO_D_SMALL_SHAPE, max_gt=4,
+                      batch_size=2):
+    """numpy training batch of depth-1 images: gt boxes with z [0, 0]
+    (the last of each image invalid), labels 1 and 2 in turn, masks
+    that fill each box's central part (MaskRCNN, HTC), and HTC's
+    gt_semantic_seg (each gt's label on its mask, 255 on the first row)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    _, h, w = shape
+    b, g = batch_size, max_gt
+    xy = rng.uniform(0.05, 0.55, (b, g, 2)) * np.array([w, h])
+    size = rng.uniform(0.15, 0.4, (b, g, 2)) * np.array([w, h])
+    boxes = np.concatenate([xy, np.minimum(xy + size, [w - 1, h - 1]),
+                            np.zeros((b, g, 2))], -1).astype(np.float32)
+    valid = np.ones((b, g), bool)
+    valid[:, -1] = False
+    labels = (np.arange(g)[None].repeat(b, 0) % 2 + 1).astype(np.int32)
+    batch = {"imgs": rng.randn(b, 3, *shape).astype(np.float32),
+             "gt_boxes": boxes, "gt_labels": labels, "gt_valid": valid}
+    if type_name in TWO_D_MASKED:
+        masks = np.zeros((b, g, 1, h, w), np.uint8)
+        for i in range(b):
+            for j in range(g):
+                x1, y1, x2, y2 = np.round(boxes[i, j, :4]).astype(int)
+                masks[i, j, 0, y1 + 1:y2, x1 + 1:x2] = 1
+        batch["gt_masks"] = masks
+    if type_name == "HybridTaskCascade":
+        seg = np.zeros((b, 1, h, w), np.int32)
+        for i in range(b):
+            for j in range(g - 1):
+                seg[i][batch["gt_masks"][i, j] > 0] = labels[i, j]
+        seg[:, :, 0] = 255
+        batch["gt_semantic_seg"] = seg
+    return batch
+
+
 def small_run(det, batch, scale=1.0):
     """The small pipeline on `det`'s device; numpy outputs."""
     import torch
@@ -1309,17 +1505,102 @@ class CountedDraws:
         return self.draws(site, n, high)
 
 
-def small_train_step(device, cfg=None, batch=None):
+class PoolArgmax:
+    """Within the block, every max-pool module of `model` (ResNet3D's and
+    ResNeXt3D's stem pool, 3x3x3 or the 2-D (1, 3, 3) one, and UNet3D's
+    2x2x2 pool at each of its three calls) returns its input gathered at
+    a recorded argmax per window: its own (F.max_pool3d's indices), or,
+    given another pass's record (`take`), that pass's, so that the
+    pool's value and its gradient follow the other pass's choice.  A
+    window whose argmax differs between the passes is a flip; it must
+    be a tie: both choices' values, on this pass's input, within
+    TIE_TOL of the call's largest input magnitude (`check_pool_ties`).
+    Each call's flips are recorded with the worst window, its two
+    values and the call's largest input."""
+
+    def __init__(self, model, take=None):
+        self.model = model
+        self.take = take
+
+    def __enter__(self):
+        import torch
+        import torch.nn.functional as F
+
+        self.indices, self.flips = [], []
+
+        def gather(x, idx):
+            out = x.flatten(2).gather(2, idx.flatten(2)).view(idx.shape)
+            if x.is_contiguous(memory_format=torch.channels_last_3d):
+                out = out.contiguous(memory_format=torch.channels_last_3d)
+            return out
+
+        def hook(mod, inp, out):
+            x = inp[0]
+            _, own = F.max_pool3d(x, mod.kernel_size, mod.stride,
+                                  mod.padding, mod.dilation,
+                                  ceil_mode=mod.ceil_mode,
+                                  return_indices=True)
+            i = len(self.indices)
+            self.indices.append(own.detach().cpu())
+            if self.take is None:
+                return gather(x, own)
+            if i >= len(self.take) or self.take[i].shape != own.shape:
+                raise AssertionError("pool argmax: the passes differ in "
+                                     f"their max-pool calls at call {i}")
+            want = self.take[i].to(own.device)
+            flip = want != own
+            if bool(flip.any()):
+                a = gather(x, own).detach()
+                b = gather(x, want).detach()
+                diff = torch.where(flip, (a - b).abs(),
+                                   torch.zeros((), dtype=a.dtype,
+                                               device=a.device))
+                w = int(diff.flatten().argmax())
+                self.flips.append(dict(
+                    call=i, shape=list(x.shape), windows=int(flip.sum()),
+                    window=[int(v) for v in torch.unravel_index(
+                        torch.tensor(w), tuple(own.shape))],
+                    own_max=float(a.flatten()[w]),
+                    other_choice=float(b.flatten()[w]),
+                    max_abs_diff=float(diff.flatten()[w]),
+                    call_max_abs_input=float(x.detach().abs().max())))
+            return gather(x, want)
+
+        self._hooks = [m.register_forward_hook(hook)
+                       for m in self.model.modules()
+                       if isinstance(m, torch.nn.MaxPool3d)]
+        return self
+
+    def __exit__(self, *exc):
+        for h in self._hooks:
+            h.remove()
+        return False
+
+
+def check_pool_ties(flips, what):
+    """Every max-pool window whose argmax differs between the passes is
+    a tie (the rule of check_relu_ties): otherwise fail, naming the
+    call, the window and both values."""
+    for f in flips:
+        if not f["max_abs_diff"] <= TIE_TOL * f["call_max_abs_input"]:
+            raise AssertionError(f"{what}: a max-pool argmax differs off a "
+                                 f"tie: {f}")
+
+
+def small_train_step(device, cfg=None, batch=None, pools=None,
+                     relus=None):
     """One train step of the narrow config (or `cfg`, on the numpy
     `batch`) on `device` from seed 0's
     weights and CountedDraws(7): (losses, {name: (update, parameter
     after the step)}, the recorded samples, the draws' counts, the stem's
-    tensors), all on the CPU.  The update is the step's learning rate
-    times SGD's momentum buffer, as the optimizer applies it (the
-    parameter's own rounding would hide it at a step this small).  The
-    stem's tensors, per input shape: the max-pool's input and the
-    gradient that reaches the stem conv's output (UNet3D: the input of
-    each of its 2x2x2 max-pools, and no stem conv)."""
+    tensors, the PoolArgmax record), all on the CPU.  The update is the
+    step's learning rate times SGD's momentum buffer, as the optimizer
+    applies it (the parameter's own rounding would hide it at a step
+    this small).  Every max-pool of the backbone runs under PoolArgmax:
+    its own argmax, or with `pools` (another pass's record's indices)
+    that pass's.  The stem's tensors, per input shape: the max-pool's
+    input and the gradient that reaches the stem conv's output (UNet3D:
+    the input of each of its 2x2x2 max-pools, and no stem conv)."""
     import torch
 
     from mrcnn3d_torch.entry import build_trainer
@@ -1345,7 +1626,9 @@ def small_train_step(device, cfg=None, batch=None):
     hooks = [pool.register_forward_hook(on_pool)]
     if hasattr(backbone, "conv1"):
         hooks.append(backbone.conv1.register_forward_hook(on_conv))
-    with SampleRecorder() as rec:
+    with SampleRecorder() as rec, \
+            PoolArgmax(trainer.model, pools) as argmax, \
+            ReluBranches(relus) as branches:
         losses = trainer.step(batch)
     for h in hooks:
         h.remove()
@@ -1355,7 +1638,7 @@ def small_train_step(device, cfg=None, batch=None):
                    p.detach().cpu())
                for n, p in trainer.model.named_parameters()}
     return ({k: float(v) for k, v in losses.items()}, updates, rec.made,
-            trainer.draws.highs, stem)
+            trainer.draws.highs, stem, argmax, branches)
 
 
 def stem_divergence(gpu_stem, cpu_stem):
@@ -1389,20 +1672,27 @@ def stem_divergence(gpu_stem, cpu_stem):
 # (proposals) or encoded (deltas) in float32 on either device
 SAMPLE_FLOATS = ("bbox_targets", "rois")
 # parameter updates, card against CPU: within UPDATE_TOL of the CPU
-# update's largest magnitude.  The stem conv's weights sit under the stem
-# max-pool, whose argmax between two values equal to float32 rounding
-# follows each device's convolution rounding: a flipped window routes its
-# gradient to the neighbouring voxel, which moves the stem conv's weight
-# gradient by about 1% of its largest (1.0% on the narrow config).  The
-# phase reports the flips and the gradient they move (`stem_divergence`).
-# UNet3D's encoder convs above its last max-pool sit under its three
-# 2x2x2 max-pools the same way (the narrow UNet3D's enc0_conv0 and
-# enc1_conv0 weights: 2.2e-3 and 3.4e-3 of their largest, measured on one
-# H100; `stem_divergence` reports each pool's flips)
-UPDATE_TOL = {"backbone.conv1.weight": 2e-2,
-              **dict.fromkeys((f"backbone.enc{i}_conv{j}.{k}"
-                               for i in range(3) for j in (0, 1)
-                               for k in ("weight", "bias")), 2e-2)}
+# update's largest magnitude (PIPELINE_ATOL for a parameter it does not
+# name).  The stem conv's weights sit under the stem max-pool and
+# UNet3D's encoder convs under its 2x2x2 pools, whose argmax between two
+# values equal to float32 rounding follows each device's convolution
+# rounding; a flipped window routes its gradient to the neighbouring
+# voxel, which moved the stem conv's update by about 1% of its largest
+# before the CPU pass took the card's argmax (PoolArgmax, each flip
+# proven a tie by check_pool_ties).  A relu whose input lies within
+# rounding of 0 flips the same way: UNet3D's enc0/enc1 convs moved by
+# 2.2e-3 and 3.4e-3 after the pool replay, and by under 4e-6 once the CPU
+# pass also took the card's relu branches (ReluBranches, each unit proven
+# a tie by check_relu_ties; one H100 run).  The phase reports the flips,
+# the ties and the gradient they move (`stem_divergence`).
+UPDATE_TOL = {}
+# the same gradients held against the JAX package (the CPU tests): its
+# max-pools cannot take the port's argmax, so a tie flipped between the
+# packages keeps the stem conv (and UNet3D's encoder convs) at 2e-2
+JAX_UPDATE_TOL = {"backbone.conv1.weight": 2e-2,
+                  **dict.fromkeys((f"backbone.enc{i}_conv{j}.{k}"
+                                   for i in range(3) for j in (0, 1)
+                                   for k in ("weight", "bias")), 2e-2)}
 
 
 def compare_samples(got, want, what):
@@ -1440,14 +1730,20 @@ def check_small_train(device, cfg=None, batch=None, what="small train"):
     count, anchor target and R-CNN sample equal (float boxes and deltas
     within PIPELINE_ATOL), the losses within PIPELINE_ATOL, each
     parameter's update within PIPELINE_ATOL of the CPU update's largest
-    magnitude (UPDATE_TOL for the stem conv), and each parameter after
-    the step within that and its own float32 spacing."""
+    magnitude (UPDATE_TOL where it names one), and each parameter after
+    the step within that and its own float32 spacing.  The CPU pass's
+    max-pools take the card's argmax and its relus the card's branches,
+    each window or unit where the two differ proven a tie (PoolArgmax
+    and check_pool_ties, ReluBranches and check_relu_ties)."""
     import math
 
     import torch
 
     gpu = small_train_step(device, cfg, batch)
-    cpu = small_train_step("cpu", cfg, batch)
+    cpu = small_train_step("cpu", cfg, batch, pools=gpu[5].indices,
+                           relus=gpu[6].branches)
+    check_pool_ties(cpu[5].flips, what)
+    check_relu_ties(cpu[6].ties, what)
     made_err, loss_err = compare_samples(gpu, cpu, what)
     update_err = {}
     for name, (want, p_cpu) in cpu[1].items():
@@ -1474,6 +1770,8 @@ def check_small_train(device, cfg=None, batch=None, what="small train"):
         max_sample_float_err=made_err,
         worst_update_rel_err={k: update_err[k] for k in worst},
         stem=stem_divergence(gpu[4], cpu[4]),
+        pool_ties=dict(calls=len(cpu[5].indices), flips=cpu[5].flips),
+        relu_ties=cpu[6].ties,
         tol=PIPELINE_ATOL, update_tol=UPDATE_TOL,
     )
 
@@ -2290,7 +2588,7 @@ class ReluBranches:
             if i >= len(self.take) or self.take[i].shape != on.shape:
                 raise AssertionError("relu branches: the passes differ in "
                                      f"their relu calls at call {i}")
-            want = self.take[i]
+            want = self.take[i].to(on.device)
             tie = want != on
             if bool(tie.any()):
                 mag = x.detach().abs()
@@ -3011,15 +3309,26 @@ FAMILY_LAUNCHES = {
 FAMILY_CHECKED = ("RetinaNet3D", "HybridTaskCascade3D")
 
 
-def family_calls(type_name, train):
-    """The names of one step's K1 and K2 launches of a family, in the
-    order the pipeline makes them, read from its config's flags."""
+def pipeline_calls(cfg, train, proposals_given=False):
+    """The names of one step's K1 and K2 launches of `cfg`'s type, in
+    the order the pipeline makes them, read from its flags: a
+    single-stage type's class-wise K1 (none in training), an RPN-only
+    type's proposals, a cascade's per-stage aligns (HTC's semantic ones
+    beside them), a one-scale two-stage type's bbox and mask aligns.
+    proposals_given: inference on precomputed proposals (FastRCNN), no
+    proposal K1."""
     from mrcnn3d_torch.detectors.build import detector_flags
 
-    cfg = family_config(type_name)
     f = detector_flags(cfg)
     if f["single_stage"]:
         return {"nms3d": [] if train else ["classwise"], "roi_align3d": []}
+    if not f["with_bbox"]:
+        return {"nms3d": [] if train else ["proposals"], "roi_align3d": []}
+    nms = [] if proposals_given and not train else ["proposals"]
+    if not f["cascade_stages"]:
+        align = ["bbox"] + (["mask"] if f["with_mask"] else [])
+        return {"nms3d": nms if train else nms + ["classwise"],
+                "roi_align3d": align}
     sem = f["with_semantic"]
     fusion = cfg.model.get("semantic_fusion", ("bbox", "mask"))
     masks = f["with_mask"] and f["htc"]
@@ -3036,8 +3345,14 @@ def family_calls(type_name, train):
         align.append("mask")
         if sem and "mask" in fusion:
             align.append("semantic_mask")
-    return {"nms3d": ["proposals"] if train else ["proposals", "classwise"],
+    return {"nms3d": nms if train else nms + ["classwise"],
             "roi_align3d": align}
+
+
+def family_calls(type_name, train):
+    """The names of one step's K1 and K2 launches of a family, in the
+    order the pipeline makes them, read from its config's flags."""
+    return pipeline_calls(family_config(type_name), train)
 
 
 def family_per_step(type_name):
@@ -4122,6 +4437,426 @@ def run_extras_phase(device):
     return extras, checks
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the 2-D family, with_cp and the 2-D host modules
+# ---------------------------------------------------------------------------
+
+# the narrow recipe's budgets (the JAX tests' cfg2d)
+TWO_D_BUDGET = 32
+# full width: gt boxes an image in the train step, FastRCNN's proposals
+TWO_D_MAX_GT = 20
+TWO_D_PROPOSALS = 1000
+# (K1, K2) launches an inference step and (K1, K2, K2's backward) a
+# train step: an RPN-only type's proposals (none in training), the
+# one-scale bbox and mask aligns, RetinaNet's class-wise K1 (nothing in
+# training), FastRCNN's precomputed proposals (no proposal K1 at
+# inference), the cascades' as phase 16's
+TWO_D_LAUNCHES = {
+    "RPN": ((1, 0), (0, 0, 0)),
+    "FasterRCNN": ((2, 1), (1, 1, 1)),
+    "FastRCNN": ((1, 1), (1, 1, 1)),
+    "MaskRCNN": ((2, 2), (1, 2, 2)),
+    "RetinaNet": ((1, 0), (0, 0, 0)),
+    "CascadeRCNN": ((2, 3), (1, 3, 3)),
+    "HybridTaskCascade": ((2, 8), (1, 12, 12)),
+}
+# the types whose full-width launches are recorded and checked alone
+TWO_D_CHECKED = ("FasterRCNN", "MaskRCNN")
+
+
+def two_d_calls(type_name, train):
+    """The names of one step's K1 and K2 launches of a 2-D type."""
+    return pipeline_calls(two_d_config(type_name), train,
+                          proposals_given=type_name == "FastRCNN")
+
+
+def two_d_per_step(type_name):
+    """TWO_D_LAUNCHES of a type as counter dicts (inference, train),
+    checked against the launches `two_d_calls` reads from the code."""
+    (k1, k2), (t1, t2, tb) = TWO_D_LAUNCHES[type_name]
+    infer = {"nms3d": k1, "roi_align3d": k2}
+    train = {"nms3d": t1, "roi_align3d": t2, "roi_align3d_backward": tb}
+    for per_step, is_train in ((infer, False), (train, True)):
+        got = {k: len(v) for k, v in two_d_calls(type_name,
+                                                 is_train).items()}
+        if is_train:
+            got["roi_align3d_backward"] = got["roi_align3d"]
+        if got != per_step:
+            raise AssertionError(f"{type_name}: the pipeline makes {got} "
+                                 f"launches a step, the table {per_step}")
+    return infer, train
+
+
+def check_small_two_d(device, type_name):
+    """A 2-D type at the narrow recipe (two_d_narrow) on the card against
+    the CPU: inference on a 64x64 image (FastRCNN on precomputed
+    proposals; valid and labels equal, dets and mask logits within
+    PIPELINE_ATOL) and one train step as check_small_train holds it (the
+    max-pool ties replayed); the card's launches, one step each, as
+    TWO_D_LAUNCHES says."""
+    from mrcnn3d_torch.entry import build
+
+    infer, train = two_d_per_step(type_name)
+    cfg = two_d_narrow(two_d_config(type_name), TWO_D_BUDGET)
+    gpu = build(cfg, device=device)
+    cpu = build(cfg, device="cpu")
+    batch = two_d_inputs(7, proposals=type_name == "FastRCNN")
+    zero_counts()
+    a = small_run(gpu, batch)
+    _check_counts(kernel_counts(), infer, 1, f"small {type_name}")
+    err = compare_outputs(a, small_run(cpu, batch), PIPELINE_ATOL,
+                          f"small {type_name}")
+    n = int(a["valid"].sum())
+    if n == 0:
+        raise AssertionError(f"small {type_name}: no detections, vacuous")
+    zero_counts()
+    trained = check_small_train(device, cfg,
+                                two_d_train_batch(3, type_name),
+                                f"small train {type_name}")
+    _check_counts(kernel_counts(), train, 1, f"small train {type_name}")
+    return dict(detections=n, max_abs_err=err, outputs=sorted(a),
+                train=trained)
+
+
+def two_d_full_config(type_name):
+    """A 2-D type's full config with the R-CNN (and RetinaNet) score
+    threshold at 0: random weights score each of the 80 classes near
+    1/81, under the config's 0.05, and the class-wise NMS and the mask
+    stage should run at the full budget."""
+    cfg = two_d_config(type_name)
+    cfg.test_cfg["rcnn"]["score_thr"] = 0.0
+    return cfg
+
+
+def two_d_proposals(gen, k, device):
+    """k random proposals (1, k, 6) inside TWO_D_SHAPE, z [0, 0]."""
+    import torch
+
+    _, h, w = TWO_D_SHAPE
+    xy = torch.rand((1, k, 2), generator=gen, device=device) \
+        * torch.tensor([w * 0.8, h * 0.8], device=device)
+    size = 8 + torch.rand((1, k, 2), generator=gen, device=device) \
+        * (min(h, w) * 0.2)
+    return torch.cat([xy, xy + size, torch.zeros((1, k, 2), device=device)],
+                     -1)
+
+
+def two_d_train_batch_full(gen, device, type_name, num_classes):
+    """The full-width 2-D train batch on the card: TRAIN_BATCH random
+    bf16 images of TWO_D_SHAPE, TWO_D_MAX_GT valid gt boxes each (x1,
+    y1 ~ U(4, 0.6 side), extent ~ U(16, 0.3 H), z [0, 0]) with labels
+    drawn from the num_classes - 1 classes; gt masks all ones (MaskRCNN,
+    HTC) and HTC's gt_semantic_seg from them (semantic_seg)."""
+    import torch
+
+    _, h, w = TWO_D_SHAPE
+    b, g = TRAIN_BATCH, TWO_D_MAX_GT
+    lo = 4 + torch.rand((b, g, 2), generator=gen, device=device) \
+        * torch.tensor([w * 0.6 - 4, h * 0.6 - 4], device=device)
+    size = 16 + torch.rand((b, g, 2), generator=gen, device=device) \
+        * (h * 0.3 - 16)
+    batch = {
+        "imgs": torch.randn((b, 3, *TWO_D_SHAPE), generator=gen,
+                            device=device).to(torch.bfloat16),
+        "gt_boxes": torch.cat([lo, lo + size,
+                               torch.zeros((b, g, 2), device=device)], -1),
+        "gt_valid": torch.ones((b, g), dtype=torch.bool, device=device),
+        "gt_labels": torch.randint(1, num_classes, (b, g), generator=gen,
+                                   device=device, dtype=torch.int32),
+    }
+    if type_name in TWO_D_MASKED:
+        batch["gt_masks"] = torch.ones((b, g, *TWO_D_SHAPE),
+                                       dtype=torch.uint8, device=device)
+    if type_name == "HybridTaskCascade":
+        batch["gt_semantic_seg"] = semantic_seg(batch)
+    return batch
+
+
+def run_two_d(device, type_name, steps=3, record=False):
+    """A 2-D type at full width (two_d_full_config: the shipped 2-D
+    config, ResNet-50 at base width 64, FPN 256, 81 classes, its own
+    budgets), bf16: inference on one 1x800x1344 image (FastRCNN on
+    TWO_D_PROPOSALS precomputed proposals) and the train step on
+    TRAIN_BATCH images with TWO_D_MAX_GT gt each, 1 warm-up and `steps`
+    timed, the counters zeroed just before and read just after the
+    timed ones, the peak memory of each.  record: one more step of each
+    whose launches are recorded.  Returns (the record, the captured
+    inference step, the captured train step)."""
+    import numpy as np
+    import torch
+
+    from mrcnn3d_torch.entry import build, build_trainer
+
+    infer, train = two_d_per_step(type_name)
+    torch.backends.cudnn.benchmark = True
+    cfg = two_d_full_config(type_name)
+    det = build(cfg, device=device, dtype=torch.bfloat16, seed=0)
+    gen = torch.Generator(device=device).manual_seed(11)
+    batch = {"imgs": torch.randn((1, 3, *TWO_D_SHAPE), generator=gen,
+                                 device=device).to(torch.bfloat16)}
+    if type_name == "FastRCNN":
+        batch["proposals"] = two_d_proposals(gen, TWO_D_PROPOSALS, device)
+        batch["proposals_valid"] = torch.ones(
+            (1, TWO_D_PROPOSALS), dtype=torch.bool, device=device)
+    out = {}
+    res, out["inference"] = _timed(lambda: det.simple_test(batch), infer,
+                                   steps, f"{type_name} inference")
+    out["inference"].update(_check_result(res, type_name))
+    b = cfg.test_cfg["rcnn"]["max_per_img"] if type_name != "RPN" \
+        else cfg.test_cfg["rpn"]["max_num"]
+    has_masks = type_name in TWO_D_MASKED
+    if tuple(res["dets"].shape) != (1, b, 7) or \
+            ("mask_logits" in res) != has_masks or \
+            (has_masks and tuple(res["mask_logits"].shape[2:])
+             != (1, 28, 28)) or \
+            bool((res["dets"][..., 4:6] != 0).any()):
+        shapes = {k: tuple(v.shape) for k, v in res.items()}
+        raise AssertionError(f"{type_name}: outputs {shapes}, or boxes "
+                             f"off the z = 0 plane")
+    captured = None
+    if record:
+        with Capture() as captured:
+            det.simple_test(batch)
+        torch.cuda.synchronize()
+    del det, batch, res
+
+    trainer = build_trainer(cfg, device=device, seed=0,
+                            compute_dtype=torch.bfloat16)
+    tb = two_d_train_batch_full(
+        torch.Generator(device=device).manual_seed(17), device, type_name,
+        cfg.model["bbox_head"]["num_classes"])
+    losses, out["train"] = _timed(lambda: trainer.step(tb), train, steps,
+                                  f"{type_name} train")
+    losses = {k: float(v) for k, v in losses.items()}
+    if not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError(f"{type_name} train: non-finite {losses}")
+    out["train"].update(losses_last=losses, batch=TRAIN_BATCH,
+                        images_per_s=TRAIN_BATCH
+                        / out["train"]["median_step_s"])
+    train_captured = None
+    if record and any(train.values()):
+        with Capture(tuple(TRAIN_PER_STEP)) as train_captured:
+            trainer.step(tb)
+        torch.cuda.synchronize()
+    return out, captured, train_captured
+
+
+def run_with_cp(device, steps=3):
+    """The flagship's train step at bench.py's training geometry (phase
+    8's) with and without backbone.with_cp: first one float32 step each
+    from seed 0's weights on the same batch and CountedDraws(7), cuDNN
+    pinned (PinnedCudnn), whose updates (learning rate times SGD's
+    momentum buffer) must agree within PIPELINE_ATOL of each parameter's
+    largest (in bf16 the K2 backward's float atomics, whose order varies,
+    move the stem conv's update by about 1% between any two runs); then,
+    in bf16, 1 warm-up and `steps` timed steps with the peak memory, the
+    counters zeroed just before and read just after."""
+    import copy
+
+    import torch
+
+    from mrcnn3d_torch.entry import build_trainer
+
+    out, updates = {}, {}
+    for name, with_cp in (("plain", False), ("with_cp", True)):
+        cfg = copy.deepcopy(main_config())
+        cfg.model["backbone"]["with_cp"] = with_cp
+        tb = train_batch(torch.Generator(device=device).manual_seed(17),
+                         device)
+        trainer = build_trainer(cfg, device=device, seed=0)
+        if trainer.model.backbone.with_cp != with_cp:
+            raise AssertionError("with_cp: the backbone did not read it")
+        trainer.draws = CountedDraws(7)
+        with PinnedCudnn():
+            trainer.step({k: v.float() if v.dtype == torch.bfloat16 else v
+                          for k, v in tb.items()})
+        opt = trainer.state.optimizer
+        lr = opt.param_groups[0]["lr"]
+        updates[name] = {n: (lr * opt.state[p]["momentum_buffer"]).cpu()
+                         for n, p in trainer.model.named_parameters()}
+        del trainer
+        trainer = build_trainer(cfg, device=device, seed=0,
+                                compute_dtype=torch.bfloat16)
+        torch.backends.cudnn.benchmark = True
+        _, out[name] = _timed(lambda: trainer.step(tb), TRAIN_PER_STEP,
+                              steps, f"flagship train, {name}")
+        del trainer, tb
+        torch.cuda.empty_cache()
+    worst, worst_name = 0.0, None
+    for n, want in updates["plain"].items():
+        scale = float(want.abs().max())
+        e = float((updates["with_cp"][n] - want).abs().max())
+        if not e <= PIPELINE_ATOL * scale:
+            raise AssertionError(f"with_cp: {n} update differs by {e}, "
+                                 f"largest {scale}")
+        if scale and e / scale > worst:
+            worst, worst_name = e / scale, n
+    out["max_update_rel_err"] = worst
+    out["worst_parameter"] = worst_name
+    out["memory_ratio"] = (out["with_cp"]["max_memory_allocated_gib"]
+                           / out["plain"]["max_memory_allocated_gib"])
+    out["time_ratio"] = (out["with_cp"]["median_step_s"]
+                         / out["plain"]["median_step_s"])
+    return out
+
+
+# DCN card against CPU, relative to each output's and gradient's largest;
+# in float64: the bilinear sampler's slope jumps where a sample crosses
+# an integer coordinate, and in float32 a sample within rounding of one
+# takes the other side's slope on one device
+DCN_TOL = 1e-4
+
+
+def _rel_err(got, want):
+    scale = float(want.abs().max())
+    return float((got.detach().cpu() - want).abs().max()) / (scale or 1.0)
+
+
+def check_two_d_host_modules(device):
+    """The 2-D host modules on the card, as a check that they run: (a)
+    load_reference_checkpoint of a file written here (the full-width
+    FasterRCNN's state_dict wrapped Runner-style under `module.`, plus
+    an excluded projection key) into another seed's detector: every key
+    loaded and the outputs equal to the source detector's; (b) DCN's
+    forward and backward on a full-width FPN level (stride 8, 256
+    channels of the shipped 2-D config's 1x800x1344 image), card
+    against the same computation on the CPU in float64, offsets drawn
+    so that every tap moves: DeformConv2dPack (v1 and modulated) and
+    DeformRoIPoolingPack (modulated, 128 rois), outputs and gradients
+    within DCN_TOL of their largest."""
+    import os
+    import tempfile
+
+    import torch
+
+    from mrcnn3d_torch.compat.reference_ckpt import load_reference_checkpoint
+    from mrcnn3d_torch.entry import build
+    from mrcnn3d_torch.ops.dcn import DeformConv2dPack, DeformRoIPoolingPack
+
+    out = {}
+    t = time.perf_counter()
+    cfg = two_d_full_config("FasterRCNN")
+    src = build(cfg, device=device, seed=0)
+    dst = build(cfg, device=device, seed=1)
+    fd, path = tempfile.mkstemp(suffix=".pth")
+    os.close(fd)
+    try:
+        sd = {f"module.{k}": v.cpu() for k, v in
+              src.model.state_dict().items()}
+        sd["module.backbone.projection_original_features.weight"] = \
+            torch.zeros(3)
+        torch.save({"state_dict": sd, "meta": {}}, path)
+        left = load_reference_checkpoint(dst.model, path)
+    finally:
+        os.unlink(path)
+    if left:
+        raise AssertionError(f"reference checkpoint: {left} not loaded")
+    gen = torch.Generator(device=device).manual_seed(3)
+    img = {"imgs": torch.randn((1, 3, *TWO_D_SHAPE), generator=gen,
+                               device=device)}
+    a, b = src.simple_test(img), dst.simple_test(img)
+    for k in a:
+        if not torch.equal(a[k], b[k]):
+            raise AssertionError(f"reference checkpoint: {k} differs")
+    out["reference_checkpoint"] = dict(
+        keys=len(sd), detections=int(a["valid"].sum()),
+        seconds=time.perf_counter() - t)
+    del src, dst, a, b
+
+    t = time.perf_counter()
+    _, h, w = TWO_D_SHAPE
+    level = torch.randn((1, 256, h // 8, w // 8), dtype=torch.float64,
+                        generator=torch.Generator().manual_seed(4))
+    errs = {}
+    for modulated in (False, True):
+        torch.manual_seed(5)
+        layer = DeformConv2dPack(256, 256, 3, modulated=modulated).double()
+        with torch.no_grad():
+            layer.conv_offset.weight.normal_(0.0, 0.02)
+            layer.conv_offset.bias.uniform_(-2.0, 2.0)
+        runs = []
+        for dev in (device, torch.device("cpu")):
+            lay = layer.to(dev)
+            x = level.to(dev, copy=True).requires_grad_(True)
+            y = lay(x)
+            (y * y).mean().backward()
+            runs.append((y.detach().cpu(), x.grad.cpu(),
+                         lay.weight.grad.cpu(),
+                         lay.conv_offset.weight.grad.cpu()))
+            lay.zero_grad(set_to_none=True)
+        key = "deform_conv2d_v2" if modulated else "deform_conv2d"
+        errs[key] = [_rel_err(g, w_) for g, w_ in zip(*runs)]
+    torch.manual_seed(6)
+    pool = DeformRoIPoolingPack(out_size=7, out_channels=256,
+                                spatial_scale=1.0 / 8,
+                                modulated=True).double()
+    with torch.no_grad():
+        for fcs in (pool.offset_fcs, pool.mask_fcs):
+            fcs[-1].weight.normal_(0.0, 0.02)
+    rgen = torch.Generator().manual_seed(7)
+    xy = torch.rand((128, 2), generator=rgen) * torch.tensor([w * 0.8,
+                                                              h * 0.8])
+    rois = torch.cat([torch.zeros((128, 1)), xy,
+                      xy + 16 + torch.rand((128, 2), generator=rgen) * 200],
+                     1).double()
+    runs = []
+    for dev in (device, torch.device("cpu")):
+        p = pool.to(dev)
+        x = level.to(dev, copy=True).requires_grad_(True)
+        y = p(x, rois.to(dev))
+        (y * y).mean().backward()
+        runs.append((y.detach().cpu(), x.grad.cpu(),
+                     p.offset_fcs[0].weight.grad.cpu()))
+        p.zero_grad(set_to_none=True)
+    errs["deform_roi_pool"] = [_rel_err(g, w_) for g, w_ in zip(*runs)]
+    for k, e in errs.items():
+        if not max(e) <= DCN_TOL:
+            raise AssertionError(f"{k}: card against CPU (output, input "
+                                 f"gradient, weight gradients) {e} > "
+                                 f"{DCN_TOL}")
+    out["dcn"] = dict(rel_err=errs, level=list(level.shape), rois=128,
+                      dtype="float64", tol=DCN_TOL,
+                      seconds=time.perf_counter() - t)
+    return out
+
+
+def run_two_d_phase(device):
+    """Phase 19: each 2-D type's small check, card against CPU, then
+    each at full width; the launches of TWO_D_CHECKED's steps each
+    checked alone against the plain versions (as phases 6 and 9); the
+    flagship's train step with and without with_cp; the 2-D host
+    modules.  Returns (the per-type records, the checked launches)."""
+    import torch
+
+    t0 = time.perf_counter()
+    records, checks = {}, {}
+    for type_name in TWO_D:
+        t = time.perf_counter()
+        rec = {"small": check_small_two_d(device, type_name)}
+        checked = type_name in TWO_D_CHECKED
+        full, cap, train_cap = run_two_d(device, type_name, record=checked)
+        rec.update(full)
+        if checked:
+            with torch.no_grad():
+                checks[type_name] = {"inference": check_launches(
+                    cap, two_d_calls(type_name, False),
+                    f"{type_name} step")}
+            checks[type_name]["train"] = check_train_step_kernels(
+                train_cap, two_d_calls(type_name, True))
+            del cap, train_cap
+        rec["seconds"] = time.perf_counter() - t
+        records[type_name] = rec
+        torch.cuda.empty_cache()
+    t = time.perf_counter()
+    with_cp = run_with_cp(device)
+    with_cp["seconds"] = time.perf_counter() - t
+    host = check_two_d_host_modules(device)
+    emit({"phase": "two_d", "ok": True, "types": records,
+          "kernel_checks": checks, "with_cp": with_cp,
+          "host_modules": host, "seconds": time.perf_counter() - t0})
+    return records, checks
+
+
 def _per_call(calls):
     return [{k: c[k] for k in ("name", "valid", "ms", "device_ms",
                                "device_ms_by_kernel", "plain_ms",
@@ -4167,7 +4902,7 @@ def kernels_line(nms_calls, align_calls, backward_calls, step_calls,
                  main_path, train_calls, train_path, tile_calls, wholevol,
                  learn, learn_calls, serve, serve_calls, variants,
                  variant_checks, families, family_checks, multicard,
-                 extras, extras_checks):
+                 extras, extras_checks, two_d, two_d_checks):
     """The {"kernels": [...]} record.  Per kernel: launches from the
     counted run of its path (K1 and K2: the inference main path, with the
     train path's beside them as train_* and the whole volume's as
@@ -4212,6 +4947,8 @@ def kernels_line(nms_calls, align_calls, backward_calls, step_calls,
                              train_only),
                 **group_keys("family", families, family_checks, name,
                              train_only),
+                **group_keys("two_d", two_d, two_d_checks, name,
+                             train_only),
                 **extras_keys(extras, extras_checks, name, train_only)}
 
     def multicard_keys(name):
@@ -4224,7 +4961,7 @@ def kernels_line(nms_calls, align_calls, backward_calls, step_calls,
     def variant_errs(name, train_only=False):
         parts = ("train",) if train_only else ("inference", "train")
         return [c for checks in (variant_checks, family_checks,
-                                 extras_checks)
+                                 extras_checks, two_d_checks)
                 for v in checks.values() for part in parts if part in v
                 for c in v[part][name]]
 
@@ -4414,7 +5151,7 @@ def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--only",
                    choices=("train", "learn", "variants", "families",
-                            "multicard", "extras"),
+                            "multicard", "extras", "two_d"),
                    help="run phases 1-2 and then only these")
     p.add_argument("--port", default=REPO,
                    help="the checkout whose mrcnn3d_torch is driven")
@@ -4469,6 +5206,8 @@ def main(argv=None):
             run_multicard_phase(device)
         elif args.only == "extras":
             run_extras_phase(device)
+        elif args.only == "two_d":
+            run_two_d_phase(device)
         else:
             run_train_phases(device)
         print(card, flush=True)
@@ -4536,11 +5275,14 @@ def main(argv=None):
 
     extras, extras_checks = run_extras_phase(device)
 
+    two_d, two_d_checks = run_two_d_phase(device)
+
     emit(kernels_line(nms_calls, align_calls, backward_calls, step_calls,
                       main_path, train_calls, train_path, tile_calls,
                       wholevol, learn, learn_calls, serve, serve_calls,
                       variants, variant_checks, families, family_checks,
-                      multicard, extras, extras_checks))
+                      multicard, extras, extras_checks, two_d,
+                      two_d_checks))
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -32,6 +32,10 @@ retina_reg) becomes `bbox_head.cls_convs.{i}.conv`, `.reg_convs.{i}.conv`,
 conv_embedding, conv_logits) `semantic_head.lateral_convs.{i}.conv`,
 `.convs.{i}.conv`, `.conv_embedding.conv`, `.conv_logits`.
 
+The first fc's input order depends on the bbox RoIAlign's output shape:
+`roi_shape(cfg)` reads it from the config ((1, 7, 7) for the 2-D
+family, whose mask heads' (1, 2, 2) deconv takes the same transform).
+
 Every transform is a permutation, so the same function carries any tree
 shaped as the params (a gradient, optax's momentum trace) onto the
 port's names; without "batch_stats" it gives the parameters only.
@@ -64,6 +68,14 @@ def _fc0(w, roi_shape):
     c = w.shape[0] // (d * h * ww)
     w = np.transpose(w).reshape(out, d, h, ww, c)
     return np.transpose(w, (0, 4, 1, 2, 3)).reshape(out, -1)
+
+
+def roi_shape(cfg):
+    """The bbox RoIAlign's output (D, H, W) of cfg.model (the flagship's
+    (3, 7, 7) when the config names no bbox extractor)."""
+    layer = cfg.model.get("bbox_roi_extractor", {}).get("roi_layer", {})
+    out = layer.get("out_size", 7)
+    return (layer.get("out_size_depth", 3), out, out)
 
 
 def state_dict_from_jax(variables, roi_shape=(3, 7, 7)):

@@ -1,7 +1,6 @@
 """COCO-3D datasets (.npy volumes + 6-element bboxes): the port's copy of
-`mrcnn3d/data/coco3d.py` (its single-, two- and three-scale and parcel
-datasets; the 2-D dataset comes with its detectors, ROADMAP Queue A item
-11.8).  Samples are numpy, channel-last (D, H, W, 3); the loader
+`mrcnn3d/data/coco3d.py` (its single-, two- and three-scale, parcel and
+2-D datasets).  Samples are numpy, channel-last (D, H, W, 3); the loader
 (`data/loader.py`) turns a batch into the model's NCDHW on the card.
 
 Host-side replacements for the reference dataset stack
@@ -21,6 +20,8 @@ Host-side replacements for the reference dataset stack
   * 3-scale: a 2.25x twin besides the 1.5x one (reference
     coco_3d_3scales.py); parcel: each instance's `brain_region` as
     gt_bregions (reference coco_3d_parcel.py:63-107)
+  * 2-D: images as depth-1 volumes for the 2-D detector family, COCO's
+    4-element boxes with z [0, 0] (`Coco2DDataset`)
 
 Patch-tiled evaluation sets carry `pos_top/pos_left/pos_front` offsets in
 img_info, consumed by the eval json writers (`eval/results.py`).
@@ -336,3 +337,38 @@ class Coco3D3ScalesDataset(Coco3D2ScalesDataset):
         sample["imgs_3"] = img3
         sample["ori_shape_3"] = ori3
         return sample
+
+
+class Coco2DDataset(Coco3DDataset):
+    """2-D images as depth-1 volumes (the 2-D legacy family;
+    `mrcnn3d/data/coco3d.py:336-368`).
+
+    Accepts standard COCO 4-element bboxes ([x, y, w, h] -> z extent
+    [0, 0]); image files are (H, W) or (H, W, 3) .npy arrays, an RGB one
+    averaged over its channels.
+    """
+
+    def _ann_arrays(self, img_id):
+        anns = self.anns_by_img.get(img_id, [])
+        boxes = []
+        for a in anns:
+            b = a["bbox"]
+            if len(b) == 4:
+                boxes.append([b[0], b[1], b[0] + b[2] - 1,
+                              b[1] + b[3] - 1, 0, 0])
+            else:
+                boxes.append(_xywhzd_to_xyxyzz(b))
+        boxes = np.array(boxes, np.float32).reshape(-1, 6)
+        labels = np.array(
+            [a.get("category_id", 1) for a in anns], np.int32
+        )
+        return anns, boxes, labels
+
+    def load_volume(self, img_info):
+        img = np.load(
+            osp.join(self.img_prefix, img_info["file_name"]),
+            allow_pickle=True,
+        )
+        if img.ndim == 3:  # (H, W, 3) RGB -> its channels' mean
+            img = img.mean(axis=-1)
+        return img[..., None]  # (H, W, 1): a depth-1 volume

@@ -3,8 +3,13 @@
 Port of `mrcnn3d/detectors/build.py` for its 3-D rows: the flagship
 `MaskRCNN3D2Scales` and its ablation arms, which differ only in pathway
 count, head sharing and which heads exist (SURVEY.md section 2.4), so
-each is a row of flags; and the single-stage and cascade families
-(RetinaNet3D, CascadeRCNN3D, HybridTaskCascade3D).  The config keys read
+each is a row of flags; the single-stage and cascade families
+(RetinaNet3D, CascadeRCNN3D, HybridTaskCascade3D); and the 2-D legacy
+family (RPN, FasterRCNN, FastRCNN, MaskRCNN, RetinaNet, CascadeRCNN,
+HybridTaskCascade), the same flags with `two_d`: depth-1 volumes through
+(1, k, k) kernels, a base width of 64 unless the config gives one
+(`build.py:113-115`).  `backbone.with_cp` is read where the JAX package
+reads it (`build.py:137`).  The config keys read
 here are the ones `mrcnn3d/detectors/build.py` reads, so narrowed widths
 (`backbone.base_width`, `neck.out_channels`, `fc_out_channels`) build
 the same shapes in both packages.
@@ -40,15 +45,25 @@ TYPES = {
     "CascadeRCNN3D": dict(num_scales=1, with_mask=False, cascade=True),
     "HybridTaskCascade3D": dict(num_scales=1, with_mask=True, cascade=True,
                                 htc=True),
+    # the 2-D legacy family: depth-1 volumes, (1, k, k) kernels
+    "RPN": dict(num_scales=1, with_bbox=False, with_mask=False, two_d=True),
+    "FasterRCNN": dict(num_scales=1, with_mask=False, two_d=True),
+    "FastRCNN": dict(num_scales=1, with_mask=False, two_d=True),
+    "MaskRCNN": dict(num_scales=1, two_d=True),
+    "RetinaNet": dict(num_scales=1, with_bbox=False, with_mask=False,
+                      single_stage=True, two_d=True),
+    "CascadeRCNN": dict(num_scales=1, with_mask=False, two_d=True,
+                        cascade=True),
+    "HybridTaskCascade": dict(num_scales=1, with_mask=True, two_d=True,
+                              cascade=True, htc=True),
 }
 SUPPORTED = tuple(TYPES)
 
 # the JAX package's other types, by the ROADMAP Queue A item that ports them
 NOT_PORTED = {
-    **dict.fromkeys(("RPN", "FasterRCNN", "FastRCNN", "MaskRCNN",
-                     "RetinaNet", "CascadeRCNN", "HybridTaskCascade", "SSD",
-                     "MaskRCNNRGB", "MaskRCNNRGB2"),
-                    "11.8 (the 2-D family, SSD and RGB)"),
+    "SSD": "11.8 (b) (SSD: its VGG backbone, head, anchors and loss)",
+    **dict.fromkeys(("MaskRCNNRGB", "MaskRCNNRGB2"),
+                    "11.8 (c) (the RGB 2.5-D family)"),
 }
 
 # parcellation classes when the config names none (`build.py:83-85`)
@@ -88,6 +103,8 @@ def detector_flags(cfg):
         stages = len(rcnn) if isinstance(rcnn, (list, tuple)) else 3
     flags["cascade_stages"] = stages
     flags.setdefault("htc", False)
+    flags.setdefault("two_d", False)
+    flags["with_cp"] = bool(m.get("backbone", {}).get("with_cp", False))
     sem = m.get("semantic_head") if flags["htc"] else None
     flags["with_semantic"] = sem is not None
     if sem is not None:
@@ -121,7 +138,8 @@ def build_detector(cfg, dtype=torch.float32, device=None, seed=0,
     bbox_roi = m.get("bbox_roi_extractor", {}).get("roi_layer", {})
     model = Detector3D(
         depth=m["backbone"].get("depth", 50),
-        base_width=m["backbone"].get("base_width", 16),
+        base_width=m["backbone"].get("base_width",
+                                     64 if flags["two_d"] else 16),
         backbone_type=m["backbone"].get("type", "ResNet3D"),
         fpn_channels=m["neck"].get("out_channels", 64),
         num_outs=m["neck"].get("num_outs", 5),

@@ -376,8 +376,9 @@ def mask_stage(model, feats, dets, dvalid, refined, mask_roi_cfg):
     mfeat = roi_align(feats, rois[rows], mask_roi_cfg, rvalid[rows])
     layer = mask_roi_cfg["roi_layer"]
     od, o = layer["out_size_depth"], layer["out_size"]
-    out = torch.zeros((rois.shape[0], model.num_classes, 2 * od, 2 * o,
-                       2 * o), dtype=mfeat.dtype, device=mfeat.device)
+    out = torch.zeros((rois.shape[0], model.num_classes)
+                      + model.mask_size(od, o), dtype=mfeat.dtype,
+                      device=mfeat.device)
     # positions in `rows` (and so in mfeat), per head
     pos = torch.arange(rows.shape[0], device=rows.device)
     groups = [(pos, model.mask_forward)]
@@ -930,8 +931,9 @@ def htc_mask_stage(model, feats, sem_feat, dets, dvalid, cfg):
         mfeat = mfeat + fuse(rois[rows], rvalid[rows])
     layer = mask_cfg["roi_layer"]
     od, o = layer["out_size_depth"], layer["out_size"]
-    out = torch.zeros((rois.shape[0], model.num_classes, 2 * od, 2 * o,
-                       2 * o), dtype=torch.float32, device=mfeat.device)
+    out = torch.zeros((rois.shape[0], model.num_classes)
+                      + model.mask_size(od, o), dtype=torch.float32,
+                      device=mfeat.device)
     info_flow = cfg.model.get("mask_info_flow", True)
     stages = model.cascade_stages
     for chunk in torch.split(torch.arange(rows.shape[0],

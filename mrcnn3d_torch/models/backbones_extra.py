@@ -10,7 +10,9 @@ Port of the 3-D half of `mrcnn3d/models/backbones_extra.py`:
     tap has stride 1.
   * ResNeXt3D -- ResNet3D with grouped 3x3x3 convs (reference
     resnext3d.py): BottleneckX3D's conv2 has `groups` groups of width
-    max(int(planes * base_width / 64) * groups, groups).
+    max(int(planes * base_width / 64) * groups, groups).  `two_d` is
+    ResNet3D's 2-D mode (`mrcnn3d/models/backbones_extra.py:73-82,
+    :131-170`); neither backbone reads `with_cp`, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -79,10 +81,10 @@ class BottleneckX3D(Bottleneck3D):
     """The ResNeXt bottleneck: Bottleneck3D with a grouped conv2."""
 
     def __init__(self, cin, planes, stride=1, with_downsample=False,
-                 groups=32, base_width=4):
+                 groups=32, base_width=4, two_d=False):
         width = max(int(planes * (base_width / 64.0)) * groups, groups)
         super().__init__(cin, planes, stride, with_downsample,
-                         groups=groups, width=width)
+                         groups=groups, width=width, two_d=two_d)
 
 
 class ResNeXt3D(ResNet3D):
@@ -91,10 +93,11 @@ class ResNeXt3D(ResNet3D):
     channels (ResNet3D's base_width), `base_width` the ResNeXt width per
     group at 64 planes."""
 
-    def __init__(self, depth=50, groups=32, base_width=4, width=16):
+    def __init__(self, depth=50, groups=32, base_width=4, width=16,
+                 two_d=False):
         self.groups = groups
         self.group_width = base_width
-        super().__init__(depth=depth, base_width=width)
+        super().__init__(depth=depth, base_width=width, two_d=two_d)
 
     @staticmethod
     def arch(depth):
@@ -102,4 +105,4 @@ class ResNeXt3D(ResNet3D):
 
     def make_block(self, kind, cin, planes, stride, with_downsample):
         return BottleneckX3D(cin, planes, stride, with_downsample,
-                             self.groups, self.group_width)
+                             self.groups, self.group_width, self.two_d)

@@ -21,7 +21,14 @@ the config says, as the JAX package builds it.
 
 The backbone is `backbone_type`'s (`build_backbone`): ResNet3D at depth
 18, 34, 50, 101 or 152, ResNeXt3D or UNet3D; the FPN's in-channels
-follow its outputs.
+follow its outputs.  `with_cp` recomputes ResNet3D's blocks in the
+backward pass (ResNeXt3D and UNet3D ignore it, as the JAX package's do).
+
+`two_d` is the 2-D legacy family (`mrcnn3d/detectors/build.py:17-37`):
+depth-1 volumes through ResNet3D's or ResNeXt3D's (1, k, k) mode and the
+2-D mode of the mask, HTC mask, semantic and RetinaNet heads; the FPN,
+the RPN head, the bbox heads and the refinement mask head keep their
+3x3x3 kernels, as the JAX package builds them.
 
 The module owns the parameters only; proposal decoding, RoIAlign, NMS
 and the stage logic live in `detectors/pipeline.py`.  Features run in
@@ -48,17 +55,21 @@ from .resnet3d import ResNet3D
 
 
 BACKBONES = ("ResNet3D", "ResNeXt3D", "UNet3D")
+# the 2-D configs' name of ResNet3D (configs/faster_rcnn_2d.py)
+RESNET_NAMES = ("ResNet3D", "ResNet")
 
 
-def build_backbone(backbone_type, depth=50, base_width=16):
+def build_backbone(backbone_type, depth=50, base_width=16, two_d=False,
+                   with_cp=False):
     """The backbone of `backbone_type`, as `mrcnn3d/models/detector.py:
     106-121` builds it: ResNeXt3D takes the stem width from base_width
     (groups 32, 4 channels a group at 64 planes); UNet3D its defaults
     (base_channels 16, 4 levels) whatever the config says."""
-    if backbone_type == "ResNet3D":
-        return ResNet3D(depth=depth, base_width=base_width)
+    if backbone_type in RESNET_NAMES:
+        return ResNet3D(depth=depth, base_width=base_width, two_d=two_d,
+                        with_cp=with_cp)
     if backbone_type == "ResNeXt3D":
-        return ResNeXt3D(depth=depth, width=base_width)
+        return ResNeXt3D(depth=depth, width=base_width, two_d=two_d)
     if backbone_type == "UNet3D":
         return UNet3D()
     raise KeyError(f"unknown backbone type {backbone_type!r}; the port "
@@ -98,6 +109,8 @@ class Detector3D(nn.Module):
         with_semantic=False,
         semantic_num_classes=2,
         semantic_fusion_level=1,
+        two_d=False,
+        with_cp=False,
     ):
         super().__init__()
         self.num_classes = num_classes
@@ -113,12 +126,15 @@ class Detector3D(nn.Module):
         self.cascade_stages = cascade_stages
         self.htc = htc
         self.with_semantic = with_semantic
-        self.backbone = build_backbone(backbone_type, depth, base_width)
+        self.two_d = two_d
+        self.backbone = build_backbone(backbone_type, depth, base_width,
+                                       two_d, with_cp)
         self.neck = FPN3D(self.backbone.out_channels, fpn_channels, num_outs)
         roi_features = fpn_channels * roi_size_depth * roi_size * roi_size
         if single_stage:
             self.bbox_head = RetinaHead3D(fpn_channels, stacked_convs,
-                                          num_anchors, num_classes - 1)
+                                          num_anchors, num_classes - 1,
+                                          two_d=two_d)
             return
         for s in range(1 if one_rpn else num_scales):
             setattr(self, _scale_name("rpn_head", s),
@@ -131,12 +147,12 @@ class Detector3D(nn.Module):
             if with_mask and htc:
                 self.mask_head = nn.ModuleList([
                     HTCMaskHead3D(fpn_channels, num_classes, mask_convs,
-                                  with_conv_res=t > 0)
+                                  with_conv_res=t > 0, two_d=two_d)
                     for t in range(cascade_stages)])
             if with_semantic:
                 self.semantic_head = FusedSemanticHead3D(
                     fpn_channels, num_outs, semantic_fusion_level,
-                    num_classes=semantic_num_classes)
+                    num_classes=semantic_num_classes, two_d=two_d)
             return
         for s in range(1 if share_heads else num_scales):
             if with_bbox:
@@ -151,7 +167,8 @@ class Detector3D(nn.Module):
                 setattr(
                     self,
                     _scale_name("mask_head", s),
-                    FCNMaskHead3D(fpn_channels, num_classes, mask_convs),
+                    FCNMaskHead3D(fpn_channels, num_classes, mask_convs,
+                                  two_d=two_d),
                 )
         if with_refinement:
             self.refinement_head = SharedFCBBoxHead3DRefinement(
@@ -205,6 +222,14 @@ class Detector3D(nn.Module):
 
     def refinement_mask_forward(self, roi_feats):
         return self.refinement_mask_head(roi_feats)
+
+    def mask_size(self, out_d, out):
+        """The mask heads' (Dm, Hm, Wm) for RoI features of (out_d, out,
+        out): the upsample's factor per axis."""
+        head = (self.mask_head[0] if self.cascade_stages > 0
+                else self._head("mask_head", 0))
+        fd, fh, fw = head.upsample_factor
+        return out_d * fd, out * fh, out * fw
 
     def featmap_sizes(self, shape):
         """FPN level (d, h, w) sizes for an input volume of (D, H, W)."""

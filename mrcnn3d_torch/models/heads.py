@@ -19,6 +19,13 @@
   * RetinaHead3D -- reference retina_head.py lifted to 6-DoF: cls and reg
     towers of 3x3x3 convs + ReLU, then per-anchor sigmoid class logits
     and deltas.
+
+`two_d` (the 2-D legacy family on depth-1 maps, `mrcnn3d/models/heads.py
+:114-133, :161-189, :216-222, :307-313`): the mask, HTC mask, semantic
+and RetinaNet heads' 3x3x3 convs become (1, 3, 3) and the mask heads'
+2x upsample (1, 2, 2).  The RPN head and the bbox heads have no 2-D mode,
+as in the JAX package: their 3x3x3 conv sees only its centre depth tap
+on a depth-1 map.
 """
 from __future__ import annotations
 
@@ -27,6 +34,11 @@ from torch import nn
 
 from ..ops.resize3d import jax_resize
 from .layers import ConvModule3D
+
+
+def conv3(two_d):
+    """(kernel, padding) of a head's 3x3 conv."""
+    return ((1, 3, 3), (0, 1, 1)) if two_d else (3, 1)
 
 
 class RPNHead3D(nn.Module):
@@ -92,16 +104,20 @@ class SharedFCBBoxHead3DRefinement(SharedFCBBoxHead3D):
 
 class FCNMaskHead3D(nn.Module):
     def __init__(self, channels=64, num_classes=2, num_convs=4,
-                 upsample_ratio=2):
+                 upsample_ratio=2, two_d=False):
         super().__init__()
+        k, p = conv3(two_d)
         self.convs = nn.ModuleList(
             [
-                ConvModule3D(channels, channels, 3, padding=1, relu=True)
+                ConvModule3D(channels, channels, k, padding=p, relu=True)
                 for _ in range(num_convs)
             ]
         )
+        r = upsample_ratio
+        self.upsample_factor = (1, r, r) if two_d else (r, r, r)
         self.upsample = nn.ConvTranspose3d(
-            channels, channels, upsample_ratio, stride=upsample_ratio
+            channels, channels, self.upsample_factor,
+            stride=self.upsample_factor
         )
         self.conv_logits = nn.Conv3d(channels, num_classes, 1)
 
@@ -121,8 +137,9 @@ class HTCMaskHead3D(FCNMaskHead3D):
     None with `return_logits=False` (an info-flow-only pass)."""
 
     def __init__(self, channels=64, num_classes=2, num_convs=4,
-                 upsample_ratio=2, with_conv_res=True):
-        super().__init__(channels, num_classes, num_convs, upsample_ratio)
+                 upsample_ratio=2, with_conv_res=True, two_d=False):
+        super().__init__(channels, num_classes, num_convs, upsample_ratio,
+                         two_d)
         self.conv_res = (ConvModule3D(channels, channels, 1)
                          if with_conv_res else None)
 
@@ -146,13 +163,14 @@ class FusedSemanticHead3D(nn.Module):
     embedding (B, C, d, h, w)) at the fusion level's size."""
 
     def __init__(self, channels=64, num_ins=5, fusion_level=1, num_convs=4,
-                 num_classes=2):
+                 num_classes=2, two_d=False):
         super().__init__()
         self.fusion_level = fusion_level
         self.lateral_convs = nn.ModuleList(
             [ConvModule3D(channels, channels, 1) for _ in range(num_ins)])
+        k, p = conv3(two_d)
         self.convs = nn.ModuleList(
-            [ConvModule3D(channels, channels, 3, padding=1, relu=True)
+            [ConvModule3D(channels, channels, k, padding=p, relu=True)
              for _ in range(num_convs)])
         self.conv_logits = nn.Conv3d(channels, num_classes, 1)
         self.conv_embedding = ConvModule3D(channels, channels, 1)
@@ -174,19 +192,20 @@ class RetinaHead3D(nn.Module):
     reg (B, A * 6, d, h, w)); `cls_out` is num_classes - 1."""
 
     def __init__(self, channels=64, stacked_convs=4, num_anchors=1,
-                 cls_out_channels=1):
+                 cls_out_channels=1, two_d=False):
         super().__init__()
+        k, p = conv3(two_d)
 
         def tower():
             return nn.ModuleList(
-                [ConvModule3D(channels, channels, 3, padding=1, relu=True)
+                [ConvModule3D(channels, channels, k, padding=p, relu=True)
                  for _ in range(stacked_convs)])
 
         self.cls_convs = tower()
         self.reg_convs = tower()
         self.retina_cls = nn.Conv3d(channels, num_anchors * cls_out_channels,
-                                    3, padding=1)
-        self.retina_reg = nn.Conv3d(channels, num_anchors * 6, 3, padding=1)
+                                    k, padding=p)
+        self.retina_reg = nn.Conv3d(channels, num_anchors * 6, k, padding=p)
 
     def forward(self, x):
         c, r = x, x

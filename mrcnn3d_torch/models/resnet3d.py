@@ -10,6 +10,14 @@
   * pytorch-style Bottleneck (stride on the 3x3x3 conv);
   * frozen BatchNorm.
 
+`two_d` (`mrcnn3d/models/resnet3d.py:155-240, :346-400`) is the 2-D
+legacy family's mode on depth-1 volumes: a (1, 7, 7) stem of padding
+(0, 3, 3), a (1, 3, 3) max-pool of stride (1, 2, 2), (1, 3, 3) block
+convs and (1, s, s) strides, so that every conv is exactly a 2-D conv.
+`with_cp` (the config's `backbone.with_cp`, which the JAX package reads
+as `remat`) recomputes each block's activations in the backward pass
+(`torch.utils.checkpoint`) while gradients are taken.
+
 Depth sharding (`parallel/spatial.py`, the counterpart of
 `mrcnn3d/models/resnet3d.py:306-340`): with `depth_slabs` set, each rank
 of its group runs the backbone on a depth slab of the volume; every conv
@@ -21,6 +29,7 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from .layers import FrozenBatchNorm
 
@@ -34,6 +43,14 @@ ARCH_SETTINGS = {
 }
 
 
+def _kernel3(two_d, stride=1):
+    """(kernel, stride, padding) of a block's 3x3 conv: (1, 3, 3) with
+    stride (1, s, s) under two_d, else 3x3x3 of stride s."""
+    if two_d:
+        return (1, 3, 3), (1, stride, stride), (0, 1, 1)
+    return 3, stride, 1
+
+
 def _downsample(cin, cout, stride):
     return nn.Sequential(nn.Conv3d(cin, cout, 1, stride=stride, bias=False),
                          FrozenBatchNorm(cout))
@@ -43,21 +60,21 @@ class Bottleneck3D(nn.Module):
     expansion = 4
 
     def __init__(self, cin, planes, stride=1, with_downsample=False,
-                 groups=1, width=None):
+                 groups=1, width=None, two_d=False):
         super().__init__()
         cout = planes * self.expansion
         width = width or planes
+        k, s, p = _kernel3(two_d, stride)
         self.conv1 = nn.Conv3d(cin, width, 1, bias=False)
         self.bn1 = FrozenBatchNorm(width)
         self.conv2 = nn.Conv3d(
-            width, width, 3, stride=stride, padding=1, groups=groups,
-            bias=False
+            width, width, k, stride=s, padding=p, groups=groups, bias=False
         )
         self.bn2 = FrozenBatchNorm(width)
         self.conv3 = nn.Conv3d(width, cout, 1, bias=False)
         self.bn3 = FrozenBatchNorm(cout)
         self.downsample = (
-            _downsample(cin, cout, stride) if with_downsample else None
+            _downsample(cin, cout, s) if with_downsample else None
         )
 
     @property
@@ -83,15 +100,17 @@ class BasicBlock3D(nn.Module):
 
     expansion = 1
 
-    def __init__(self, cin, planes, stride=1, with_downsample=False):
+    def __init__(self, cin, planes, stride=1, with_downsample=False,
+                 two_d=False):
         super().__init__()
-        self.conv1 = nn.Conv3d(cin, planes, 3, stride=stride, padding=1,
+        k, s, p = _kernel3(two_d, stride)
+        self.conv1 = nn.Conv3d(cin, planes, k, stride=s, padding=p,
                                bias=False)
         self.bn1 = FrozenBatchNorm(planes)
-        self.conv2 = nn.Conv3d(planes, planes, 3, padding=1, bias=False)
+        self.conv2 = nn.Conv3d(planes, planes, k, padding=p, bias=False)
         self.bn2 = FrozenBatchNorm(planes)
         self.downsample = (
-            _downsample(cin, planes, stride) if with_downsample else None
+            _downsample(cin, planes, s) if with_downsample else None
         )
 
     @property
@@ -138,18 +157,26 @@ class ResNet3D(nn.Module):
     # a `parallel.spatial.DepthSlabs` while the backbone runs depth-sharded
     depth_slabs = None
 
-    def __init__(self, depth=50, base_width=16):
+    def __init__(self, depth=50, base_width=16, two_d=False, with_cp=False):
         super().__init__()
         if depth not in ARCH_SETTINGS:
             raise KeyError(f"{type(self).__name__} depth {depth}: the "
                            f"depths are {sorted(ARCH_SETTINGS)}")
         kind, stage_blocks = self.arch(depth)
         self.base_width = base_width
-        self.conv1 = nn.Conv3d(
-            3, base_width, 7, stride=(1, 2, 2), padding=3, bias=False
-        )
+        self.two_d = two_d
+        self.with_cp = with_cp
+        if two_d:
+            self.conv1 = nn.Conv3d(3, base_width, (1, 7, 7), stride=(1, 2, 2),
+                                   padding=(0, 3, 3), bias=False)
+            self.maxpool = nn.MaxPool3d((1, 3, 3), stride=(1, 2, 2),
+                                        padding=(0, 1, 1))
+        else:
+            self.conv1 = nn.Conv3d(
+                3, base_width, 7, stride=(1, 2, 2), padding=3, bias=False
+            )
+            self.maxpool = nn.MaxPool3d(3, stride=2, padding=1)
         self.bn1 = FrozenBatchNorm(base_width)
-        self.maxpool = nn.MaxPool3d(3, stride=2, padding=1)
         expansion = 4 if kind == "bottleneck" else 1
         cin = base_width
         for i, n in enumerate(stage_blocks):
@@ -172,7 +199,7 @@ class ResNet3D(nn.Module):
 
     def make_block(self, kind, cin, planes, stride, with_downsample):
         block = Bottleneck3D if kind == "bottleneck" else BasicBlock3D
-        return block(cin, planes, stride, with_downsample)
+        return block(cin, planes, stride, with_downsample, two_d=self.two_d)
 
     def forward(self, x):
         """The four stage outputs of `x`; with `depth_slabs` set, each
@@ -188,7 +215,11 @@ class ResNet3D(nn.Module):
             layer = getattr(self, f"layer{i + 1}")
             x = slabs.settle(x, layer[0].strided)
             for block in layer:
-                x = block(x, slabs.apply)
+                if self.with_cp and torch.is_grad_enabled():
+                    x = checkpoint(block, x, slabs.apply,
+                                   use_reentrant=False)
+                else:
+                    x = block(x, slabs.apply)
             outs.append(slabs.whole(x))
         return outs
 
@@ -200,9 +231,13 @@ class ResNet3D(nn.Module):
 
         d, h, w = shape
         h, w = conv(h, 7, 2, 3), conv(w, 7, 2, 3)
-        d, h, w = (conv(n, 3, 2, 1) for n in (d, h, w))
+        h, w = conv(h, 3, 2, 1), conv(w, 3, 2, 1)
+        if not self.two_d:
+            d = conv(d, 3, 2, 1)
         sizes = []
         for s in self.strides:
-            d, h, w = (conv(n, 3, s, 1) for n in (d, h, w))
+            h, w = conv(h, 3, s, 1), conv(w, 3, s, 1)
+            if not self.two_d:
+                d = conv(d, 3, s, 1)
             sizes.append((d, h, w))
         return sizes

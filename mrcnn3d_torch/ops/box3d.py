@@ -127,26 +127,43 @@ def delta2bbox3d(
     return out.reshape(deltas.shape)
 
 
-def bbox_overlaps_3d(boxes1, boxes2):
-    """Pairwise volume IoU with +1 extents: (m, 6), (n, 6) -> (m, n).
-
-    The expression order is the one the NMS kernel repeats:
-    inter / (vol1 + vol2 - inter).
-    """
-    xa = torch.maximum(boxes1[:, None, 0], boxes2[None, :, 0])
-    ya = torch.maximum(boxes1[:, None, 1], boxes2[None, :, 1])
-    xb = torch.minimum(boxes1[:, None, 2], boxes2[None, :, 2])
-    yb = torch.minimum(boxes1[:, None, 3], boxes2[None, :, 3])
-    za = torch.maximum(boxes1[:, None, 4], boxes2[None, :, 4])
-    zb = torch.minimum(boxes1[:, None, 5], boxes2[None, :, 5])
-    inter = (
+def _intersection(boxes1, boxes2):
+    """The +1-extent intersection volume of boxes that broadcast."""
+    xa = torch.maximum(boxes1[..., 0], boxes2[..., 0])
+    ya = torch.maximum(boxes1[..., 1], boxes2[..., 1])
+    xb = torch.minimum(boxes1[..., 2], boxes2[..., 2])
+    yb = torch.minimum(boxes1[..., 3], boxes2[..., 3])
+    za = torch.maximum(boxes1[..., 4], boxes2[..., 4])
+    zb = torch.minimum(boxes1[..., 5], boxes2[..., 5])
+    return (
         (xb - xa + 1.0).clamp(min=0)
         * (yb - ya + 1.0).clamp(min=0)
         * (zb - za + 1.0).clamp(min=0)
     )
+
+
+def bbox_overlaps_3d(boxes1, boxes2, mode="iou"):
+    """Pairwise volume IoU (or, mode "iof", the intersection over the
+    first box's volume) with +1 extents: (m, 6), (n, 6) -> (m, n)
+    (reference mmdet/core/bbox/geometry.py:49-62, its 6-column branch).
+
+    The expression order is the one the NMS kernel repeats:
+    inter / (vol1 + vol2 - inter).
+    """
+    if mode not in ("iou", "iof"):
+        raise ValueError(f"mode {mode!r}: 'iou' or 'iof'")
+    inter = _intersection(boxes1[:, None], boxes2[None, :])
     vol1 = box_volume(boxes1)
+    if mode == "iof":
+        return inter / vol1[:, None]
     vol2 = box_volume(boxes2)
     return inter / (vol1[:, None] + vol2[None, :] - inter)
+
+
+def bbox_overlaps_aligned_3d(boxes1, boxes2):
+    """Elementwise IoU of two box tensors of one shape (..., 6)."""
+    inter = _intersection(boxes1, boxes2)
+    return inter / (box_volume(boxes1) + box_volume(boxes2) - inter)
 
 
 def clip_boxes(boxes, img_shape):

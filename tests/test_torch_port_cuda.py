@@ -732,3 +732,50 @@ def test_extras_small_card_vs_cpu(cuda, name):
     import chip_smoke
 
     assert chip_smoke.check_small_extra(cuda, name)["detections"] > 0
+
+
+TWO_D = ("RPN", "FasterRCNN", "FastRCNN", "MaskRCNN", "RetinaNet",
+         "CascadeRCNN", "HybridTaskCascade")
+
+
+@pytest.mark.parametrize("type_name", TWO_D)
+def test_two_d_small_card_vs_cpu(cuda, type_name):
+    """Each 2-D type at the narrow recipe, inference and a train step
+    (max-pool and relu ties replayed), on the card against the CPU, with
+    its launches a step as `chip_smoke.TWO_D_LAUNCHES` says
+    (`chip_smoke.check_small_two_d`)."""
+    import chip_smoke
+
+    assert chip_smoke.TWO_D == TWO_D
+    result = chip_smoke.check_small_two_d(cuda, type_name)
+    assert result["detections"] > 0
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_roi_align_depth_one_levels(cuda, dtype, tol):
+    """K2 on the 2-D family's depth-1 levels (256 channels of a 1x64x96
+    image's FPN, strides 4-32, depth stride 1), out 7x7x1 and 14x14x1,
+    boxes with z [0, 0]: both taps in z clamp to the one slice; against
+    the plain version computed on the CPU."""
+    from mrcnn3d_torch.ops import roi_align3d as ra
+
+    gen = torch.Generator().manual_seed(21)
+    feats = [torch.randn(1, 1, 64 // s, 96 // s, 256, generator=gen)
+             for s in (4, 8, 16, 32)]
+    n = 300
+    xy = torch.rand(n, 2, generator=gen) * torch.tensor([80.0, 50.0])
+    wh = 2 + torch.rand(n, 2, generator=gen) * 60
+    rois = torch.cat([torch.zeros(n, 1), xy, xy + wh, torch.zeros(n, 2)], 1)
+    levels = ra.map_roi_levels(rois, 4)
+    valid = torch.ones(n, dtype=torch.bool)
+    for out in (7, 14):
+        args = ([f.to(dtype) for f in feats], rois, levels, valid, out, 1,
+                [4, 8, 16, 32], [1, 1, 1, 1], 2)
+        want = ra.roi_align_3d_plain(*args)
+        got = ra.roi_align_3d_cuda(*(
+            [f.to(cuda) for f in args[0]], *(a.to(cuda) for a in args[1:4]),
+            *args[4:]))
+        assert got.shape == want.shape
+        err = float((got.float().cpu() - want.float()).abs().max())
+        assert err <= tol * max(1.0, float(want.float().abs().max())), err

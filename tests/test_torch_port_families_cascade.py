@@ -15,7 +15,7 @@ randomised with numpy) go through the port's weight bridge.
     there instead of at random);
   * training (two images): each loss within 2e-3, each parameter's
     gradient within 2e-3 of the JAX gradient's largest magnitude (2e-2
-    for the stem conv, `chip_smoke.UPDATE_TOL`), the samplers replaying
+    for the stem conv, `chip_smoke.JAX_UPDATE_TOL`), the samplers replaying
     JAX's key tree for the family (`family_draws`), every draw's count
     kept under a 1e-4 change of the input.  Training anchors take
     train_cfg.rpn.allowed_border, as `mrcnn3d/apis/train_api.py` builds
@@ -32,7 +32,7 @@ import jax.numpy as jnp
 
 from chip_smoke import (
     CONFIG,
-    UPDATE_TOL,
+    JAX_UPDATE_TOL,
     VARIANT_SHAPES,
     compare_outputs,
     family_config,
@@ -236,7 +236,7 @@ def check_gradients(type_name, recipe="config"):
         want = want.numpy()
         got = grads[name].contiguous().numpy()
         scale = float(np.abs(want).max())
-        tol = UPDATE_TOL.get(name, ATOL)
+        tol = JAX_UPDATE_TOL.get(name, ATOL)
         np.testing.assert_allclose(got, want, rtol=0,
                                    atol=tol * max(scale, 1e-12),
                                    err_msg=name)

@@ -3,9 +3,11 @@
 modules included), every 3-D two-stage variant and every single-stage and
 cascade family builds and takes a CPU step and an inference without
 them, the flagship runs inference with every backbone, test-time
-augmentation, soft-NMS, RoIPool3D, VOC mAP and recall run, the 2-D and SSD types (not yet ported) raise naming their ROADMAP
-item, and its entry points never fall back to the CPU on their
-own."""
+augmentation, soft-NMS, RoIPool3D, VOC mAP and recall run, every 2-D type
+builds and takes a CPU step and an inference, the 2-D datasets, VOC
+tools, DCN and the reference-checkpoint loader import, SSD and the RGB
+types (not yet ported) raise naming their ROADMAP item, 11.8 (b) or (c),
+and its entry points never fall back to the CPU on their own."""
 import os
 import subprocess
 import sys
@@ -41,7 +43,9 @@ _SCRIPT = textwrap.dedent(
                  "tools.learning_bench", "parallel.mesh", "parallel.batched",
                  "parallel.spatial", "parallel.launch",
                  "models.backbones_extra", "detectors.aug", "ops.roi_pool3d",
-                 "eval.mean_ap", "eval.recall", "eval.class_names"):
+                 "eval.mean_ap", "eval.recall", "eval.class_names",
+                 "data.legacy2d", "ops.dcn", "compat.reference_ckpt",
+                 "tools.voc_eval", "tools.convert_datasets.pascal_voc"):
         assert "mrcnn3d_torch." + name in names, name
     import chip_smoke
     from mrcnn3d_torch.entry import build_trainer
@@ -145,7 +149,18 @@ _SCRIPT = textwrap.dedent(
     rois = torch.cat([torch.zeros(len(dets), 1), dets[:, :6]], 1)
     assert roi_pool_3d(torch.randn(1, 4, 8, 32, 32), rois, 7, 3, 1.0,
                        1.0).shape == (len(dets), 4, 3, 7, 7)
-    for kind, item in (("MaskRCNN", "11.8"), ("SSD", "11.8")):
+    for kind in chip_smoke.TWO_D:
+        ccfg = chip_smoke.two_d_narrow(chip_smoke.two_d_config(kind))
+        tr = build_trainer(ccfg, device="cpu")
+        tb = {k: torch.from_numpy(v) for k, v in
+              chip_smoke.two_d_train_batch(3, kind).items()}
+        assert all(bool(torch.isfinite(v)) for v in tr.step(tb).values())
+        out = build(ccfg, device="cpu").simple_test(
+            {k: torch.from_numpy(v) for k, v in chip_smoke.two_d_inputs(
+                7, proposals=kind == "FastRCNN").items()})
+        assert out["dets"].shape[-1] == 7, kind
+    for kind, item in (("SSD", "11.8 (b)"), ("MaskRCNNRGB", "11.8 (c)"),
+                       ("MaskRCNNRGB2", "11.8 (c)")):
         vcfg = chip_smoke.small_config()
         vcfg.model["type"] = kind
         try:

@@ -19,7 +19,7 @@ through the port's weight bridge.
     without any decision changing);
   * training (two images): each loss within 2e-3, each parameter's
     gradient within 2e-3 of the JAX gradient's largest magnitude (the
-    stem conv 2e-2, `chip_smoke.UPDATE_TOL`: its max-pool's argmax
+    stem conv 2e-2, `chip_smoke.JAX_UPDATE_TOL`: its max-pool's argmax
     follows each package's rounding), the port's samplers replaying the
     JAX key tree, and every draw's count kept under a 1e-4 change of
     the input.  The first SGD step moves a parameter by the learning
@@ -40,7 +40,7 @@ import jax
 import jax.numpy as jnp
 
 from chip_smoke import (
-    UPDATE_TOL,
+    JAX_UPDATE_TOL,
     VARIANT_SHAPES,
     MaskProbs,
     compare_outputs,
@@ -205,7 +205,7 @@ def check_gradients(type_name):
         want = want.numpy()
         got = grads[name].contiguous().numpy()
         scale = float(np.abs(want).max())
-        tol = UPDATE_TOL.get(name, ATOL)
+        tol = JAX_UPDATE_TOL.get(name, ATOL)
         np.testing.assert_allclose(got, want, rtol=0,
                                    atol=tol * max(scale, 1e-12),
                                    err_msg=name)
