@@ -8,8 +8,10 @@ Phases, each printing one JSON line with its seconds:
   2. build    -- nvcc builds both kernels from mrcnn3d_torch/csrc/.
   3. kernels  -- each kernel against its plain PyTorch version at the shapes
                  the main path gives it (TF32 off): K1 (3-D NMS) on the 10
-                 proposal segments and on the 4000-row class-wise problem,
-                 keep masks exactly equal; K2 (RoIAlign3D) at bbox geometry
+                 proposal segments, on the 4000-row class-wise problem,
+                 on SSD300's 8732-row class-wise segment and on one
+                 segment at its limit (24,576 rows), keep masks exactly
+                 equal; K2 (RoIAlign3D) at bbox geometry
                  on the 1.0x and 1.5x pyramids and at mask geometry, and on
                  2000 rois that take its direct-read path (oversized and
                  thin-wide), 1e-4 in float32 and, in bfloat16, 2e-2 or one
@@ -202,21 +204,31 @@ Phases, each printing one JSON line with its seconds:
  19. two_d    -- the 2-D legacy family (TWO_D: RPN, FasterRCNN,
                  FastRCNN, MaskRCNN, RetinaNet, CascadeRCNN,
                  HybridTaskCascade, each by two_d_config from
-                 configs/faster_rcnn_2d.py): each at the JAX tests'
-                 narrow recipe (ResNet-18 at width 8, FPN 32, 3 classes,
-                 budgets 32, a 1x64x64 image) on the card against the
-                 CPU (inference as in phase 15, one train step as in
-                 phase 7 with the max-pool ties replayed), then at full
-                 width, bf16: ResNet-50 at base width 64, FPN 256, 81
-                 classes, the config's budgets, R-CNN score threshold 0;
-                 inference on one 1x800x1344 image (FastRCNN on 1000
-                 precomputed proposals) and the train step on 2 images
-                 with 20 gt each (masks for MaskRCNN and HTC), 1 warm-up
-                 and 3 timed each, peak memory, the counters zeroed just
-                 before and read just after (TWO_D_LAUNCHES a step); the
-                 launches of one inference and one train step of
-                 FasterRCNN and MaskRCNN (the 80-segment class-wise K1,
-                 the depth-1 K2 and its backward) each against its plain
+                 configs/faster_rcnn_2d.py; then TWO_D_LAST: SSD300 from
+                 configs/ssd300_2d.py and the RGB 2.5-D MaskRCNNRGB and
+                 MaskRCNNRGB2 by MaskRCNN's recipe): each at the JAX
+                 tests' narrow recipe (ResNet-18 at width 8, FPN 32, 3
+                 classes, budgets 32, a 1x64x64 image; the RGB batch's
+                 blue slice without gt; SSD300 as shipped at 1x300x300,
+                 float32: there is no narrower SSD) on the card against
+                 the CPU (inference as in phase 15, one train step as in
+                 phase 7 with the max-pool ties replayed, SSD's five VGG
+                 pools among them), then at full width, bf16: ResNet-50
+                 at base width 64, FPN 256, 81 classes, the config's
+                 budgets, R-CNN score threshold 0; inference on one
+                 1x800x1344 image (FastRCNN on 1000 precomputed
+                 proposals; SSD on one 1x300x300 image, every anchor in
+                 one 8732-row K1 segment) and the train step on 2 images
+                 with 20 gt each (a slice's each for the RGB types, the
+                 blue slice empty; masks for MaskRCNN, HTC and the RGB
+                 types; SSD: 8 images, mmdet's ssd300_coco.py batch),
+                 1 warm-up and 3 timed each, peak memory, the counters
+                 zeroed just before and read just after (TWO_D_LAUNCHES
+                 a step); the launches of one inference and one train
+                 step of TWO_D_CHECKED (FasterRCNN and MaskRCNN: the
+                 80-segment class-wise K1, the depth-1 K2 and its
+                 backward; SSD's 8732-row K1; MaskRCNNRGB's three head
+                 sets' K1, K2 and K2 backward) each against its plain
                  version and timed alone; the flagship's train step at
                  bench.py's training geometry with and without
                  backbone.with_cp (time, peak memory, first updates
@@ -229,10 +241,12 @@ Then the kernels line, the card line and, last, the result line
 not 0 and no result line is printed.
 
     python3 chip_smoke.py \
-        --only train|learn|variants|families|multicard|extras [--port DIR]
+        --only train|learn|variants|families|multicard|extras|two_d \
+        [--port DIR]
 
 runs phases 1-2 and then only phases 8-9 (train), 13-14 (learn and
-serve), 15 (variants), 16 (families), 17 (multicard) or 18 (extras), and
+serve), 15 (variants), 16 (families), 17 (multicard), 18 (extras) or 19
+(two_d), and
 prints no result line:
 the way to set two versions of the port side by side on one card.
 --port takes another checkout (an older commit unpacked with git
@@ -268,6 +282,8 @@ SMALL_SHAPES = [(8, 32, 32), (12, 48, 48)]
 SMALL_BUDGET = 64
 NMS_PROPOSAL_K = [[2000, 2000, 2000, 1024, 128], [2000, 2000, 2000, 2000, 432]]
 NMS_CLASSWISE_K = 4000
+# SSD300's anchors: 38^2*4 + 19^2*6 + 10^2*6 + 5^2*6 + 3^2*4 + 4
+SSD_ANCHORS = 8732
 # K2 against its plain version: absolute; a bfloat16 value may also differ
 # by one bf16 step (both versions round an f32 sum to bf16)
 ALIGN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
@@ -438,7 +454,11 @@ def pyramid(gen, model, shape, dtype, device):
 
 def check_nms(gen, device):
     """K1 on synthetic proposal-like boxes at the main path's segment
-    sizes."""
+    sizes; then past 128 tiles, where its scan reads the mask rows from
+    device memory: SSD300's class-wise segment of 8732 anchors in its
+    300x300 image, and one segment at the limit (24,576 rows, SSD512's
+    24,564 anchors rounded up to tiles) in a 512x512 one, at SSD's IoU
+    threshold."""
     import torch
 
     from mrcnn3d_torch.ops import nms3d
@@ -447,6 +467,8 @@ def check_nms(gen, device):
         ("proposals_1.0x", NMS_PROPOSAL_K[0], MAIN_SHAPES[0], 0.7),
         ("proposals_1.5x", NMS_PROPOSAL_K[1], MAIN_SHAPES[1], 0.7),
         ("classwise", [NMS_CLASSWISE_K], MAIN_SHAPES[0], 0.5),
+        ("ssd300_classwise", [SSD_ANCHORS], SSD_SHAPE, 0.45),
+        ("limit", [nms3d._MAX_ROWS], (1, 512, 512), 0.45),
     ]
     calls = []
     for name, counts, shape, thr in problems:
@@ -976,13 +998,30 @@ def family_train_batch(seed, type_name):
 TWO_D_CONFIG = os.path.join(REPO, "configs", "faster_rcnn_2d.py")
 TWO_D = ("RPN", "FasterRCNN", "FastRCNN", "MaskRCNN", "RetinaNet",
          "CascadeRCNN", "HybridTaskCascade")
-TWO_D_MASKED = ("MaskRCNN", "HybridTaskCascade")
+# the RGB 2.5-D family: one image of three slices, a head set per slice
+TWO_D_RGB = ("MaskRCNNRGB", "MaskRCNNRGB2")
+# the 2-D types of the port's last slice: SSD300 and the RGB family
+TWO_D_LAST = ("SSD",) + TWO_D_RGB
+TWO_D_MASKED = ("MaskRCNN", "HybridTaskCascade") + TWO_D_RGB
 TWO_D_CASCADES = ("CascadeRCNN", "HybridTaskCascade")
 # the shipped config's image: img_scale (1333, 800) padded to its
 # size_divisor 32, one depth slice
 TWO_D_SHAPE = (1, 800, 1344)
 # the narrow image, as the JAX tests' (tests/test_2d_family.py:59)
 TWO_D_SMALL_SHAPE = (1, 64, 64)
+SSD_CONFIG = os.path.join(REPO, "configs", "ssd300_2d.py")
+# SSD300's one input size: its extra pyramid bottoms out below it
+# (tests/test_variants.py:252-254), so it has no narrower image
+SSD_SHAPE = (1, 300, 300)
+RGB_SUFFIXES = ("_r", "_g", "_b")
+
+
+def two_d_shape(type_name, small):
+    """The image (D, H, W) of a 2-D type: SSD300's 1x300x300 at either
+    size, else TWO_D_SMALL_SHAPE or TWO_D_SHAPE."""
+    if type_name == "SSD":
+        return SSD_SHAPE
+    return TWO_D_SMALL_SHAPE if small else TWO_D_SHAPE
 
 
 def two_d_config(type_name, config_cls=None):
@@ -994,9 +1033,23 @@ def two_d_config(type_name, config_cls=None):
     test budgets over the config's 2-D anchors; the cascades take
     mmdet's three stages (IoU 0.5, 0.6, 0.7; loss weights 1, 0.5, 0.25)
     over the config's R-CNN sampler, and HTC the semantic branch of the
-    JAX tests' HTC recipe (3 classes; stride 8, depth 1)."""
+    JAX tests' HTC recipe (3 classes; stride 8, depth 1).  The RGB types
+    (MaskRCNNRGB, MaskRCNNRGB2) take MaskRCNN's recipe; SSD is
+    configs/ssd300_2d.py as shipped, with mmdet's ssd300_coco.py optimizer
+    and schedule (SGD at lr 1e-3, momentum 0.9, weight decay 5e-4, no
+    clip; 500 linear warm-up iterations from a third), which the shipped
+    file leaves out."""
     if config_cls is None:
         from mrcnn3d_torch.utils.config import Config as config_cls
+    if type_name == "SSD":
+        cfg = config_cls.fromfile(SSD_CONFIG)
+        cfg["optimizer"] = dict(type="SGD", lr=1e-3, momentum=0.9,
+                                weight_decay=5e-4)
+        cfg["optimizer_config"] = dict(grad_clip=None)
+        cfg["lr_config"] = dict(policy="step", warmup="linear",
+                                warmup_iters=500, warmup_ratio=1.0 / 3,
+                                step=[16, 22])
+        return cfg
     cfg = config_cls.fromfile(TWO_D_CONFIG)
     m = cfg.model
     m["type"] = type_name
@@ -1055,8 +1108,12 @@ def two_d_narrow(cfg, budget=32):
     test_2d_family.py:37-51): ResNet-18 at base width 8, FPN 32, fcs 64,
     3 classes, `budget` proposals an image (and anchors kept per level),
     the RPN sampler 64 anchors and each R-CNN stage `budget` // 2 rois an
-    image, `budget` // 2 detections; two mask convs."""
+    image, `budget` // 2 detections; two mask convs.  SSD300 has no
+    narrower form (SSDVGG has no width knob, 300 is its one input
+    size): it is left as it is."""
     m = cfg.model
+    if m["type"] == "SSD":
+        return cfg
     m["backbone"].update(depth=18, base_width=8)
     m["neck"]["out_channels"] = 32
     m["bbox_head"]["num_classes"] = 3
@@ -1101,14 +1158,21 @@ def two_d_inputs(seed, shape=TWO_D_SMALL_SHAPE, proposals=False):
     return batch
 
 
-def two_d_train_batch(seed, type_name, shape=TWO_D_SMALL_SHAPE, max_gt=4,
-                      batch_size=2):
-    """numpy training batch of depth-1 images: gt boxes with z [0, 0]
-    (the last of each image invalid), labels 1 and 2 in turn, masks
-    that fill each box's central part (MaskRCNN, HTC), and HTC's
-    gt_semantic_seg (each gt's label on its mask, 255 on the first row)."""
+def two_d_train_batch(seed, type_name, shape=None, max_gt=4, batch_size=2):
+    """numpy training batch of depth-1 images (of two_d_shape's small
+    shape unless `shape` is given): gt boxes with z [0, 0] (the last of
+    each image invalid), labels 1 and 2 in turn (SSD300's one class: 1),
+    masks that fill each box's central part (MaskRCNN, HTC), and HTC's
+    gt_semantic_seg (each gt's label on its mask, 255 on the first row).
+    The RGB types take one such gt set per slice (gt_boxes_r, ...,
+    gt_masks_b), each slice's boxes drawn anew, the blue slice's all
+    invalid: a slice the step skips (weights it by 0)."""
     import numpy as np
 
+    shape = shape or two_d_shape(type_name, small=True)
+    if type_name in TWO_D_RGB:
+        return rgb_slices(lambda i: two_d_train_batch(
+            seed + i, "MaskRCNN", shape, max_gt, batch_size))
     rng = np.random.RandomState(seed)
     _, h, w = shape
     b, g = batch_size, max_gt
@@ -1118,7 +1182,8 @@ def two_d_train_batch(seed, type_name, shape=TWO_D_SMALL_SHAPE, max_gt=4,
                             np.zeros((b, g, 2))], -1).astype(np.float32)
     valid = np.ones((b, g), bool)
     valid[:, -1] = False
-    labels = (np.arange(g)[None].repeat(b, 0) % 2 + 1).astype(np.int32)
+    classes = 1 if type_name == "SSD" else 2
+    labels = (np.arange(g)[None].repeat(b, 0) % classes + 1).astype(np.int32)
     batch = {"imgs": rng.randn(b, 3, *shape).astype(np.float32),
              "gt_boxes": boxes, "gt_labels": labels, "gt_valid": valid}
     if type_name in TWO_D_MASKED:
@@ -1138,6 +1203,20 @@ def two_d_train_batch(seed, type_name, shape=TWO_D_SMALL_SHAPE, max_gt=4,
     return batch
 
 
+def rgb_slices(make):
+    """An RGB type's batch from `make(i)`, a one-scale type's batch for
+    slice i: the first one's images, each slice's gt under its suffix
+    (gt_boxes_r, ..., gt_masks_b), the blue slice's all invalid."""
+    batch = {}
+    for i, sfx in enumerate(RGB_SUFFIXES):
+        part = make(i)
+        if sfx == "_b":
+            part["gt_valid"][...] = False
+        batch.setdefault("imgs", part["imgs"])
+        batch.update({k + sfx: v for k, v in part.items() if k != "imgs"})
+    return batch
+
+
 def small_run(det, batch, scale=1.0):
     """The small pipeline on `det`'s device; numpy outputs."""
     import torch
@@ -1153,30 +1232,35 @@ def small_run(det, batch, scale=1.0):
 def compare_outputs(a, b, atol, what):
     """valid and labels equal; dets, mask logits and parcellation scores
     (those the outputs hold) of valid rows within atol, and the
-    parcellations' arg-max equal.  Returns the largest difference."""
+    parcellations' arg-max equal; the same for each RGB slice's outputs
+    (suffixes _r, _g, _b).  Returns the largest difference."""
     import numpy as np
 
     if set(a) != set(b):
         raise AssertionError(f"{what}: outputs {sorted(a)} against "
                              f"{sorted(b)}")
-    for key in ("valid", "labels"):
-        if not np.array_equal(a[key], b[key]):
-            raise AssertionError(f"{what}: {key} differ")
-    v = a["valid"].reshape(-1)
-    if "parcellations" in a:
-        arg = [x["parcellations"].reshape(len(v), -1)[v].argmax(-1)
-               for x in (a, b)]
-        if not np.array_equal(*arg):
-            raise AssertionError(f"{what}: parcellation arg-max differ")
     err = 0.0
-    for key in ("dets", "mask_logits", "parcellations"):
-        if key not in a:
+    for sfx in ("",) + RGB_SUFFIXES:
+        if "valid" + sfx not in a:
             continue
-        rows, other = (x[key].reshape(len(v), -1) for x in (a, b))
-        e = float(np.abs(rows[v] - other[v]).max()) if v.any() else 0.0
-        if not e <= atol:
-            raise AssertionError(f"{what}: {key} differ by {e} > {atol}")
-        err = max(err, e)
+        for key in ("valid", "labels"):
+            if not np.array_equal(a[key + sfx], b[key + sfx]):
+                raise AssertionError(f"{what}: {key + sfx} differ")
+        v = a["valid" + sfx].reshape(-1)
+        if "parcellations" + sfx in a:
+            arg = [x["parcellations" + sfx].reshape(len(v), -1)[v].argmax(-1)
+                   for x in (a, b)]
+            if not np.array_equal(*arg):
+                raise AssertionError(f"{what}: parcellation arg-max differ")
+        for key in ("dets", "mask_logits", "parcellations"):
+            if key + sfx not in a:
+                continue
+            rows, other = (x[key + sfx].reshape(len(v), -1) for x in (a, b))
+            e = float(np.abs(rows[v] - other[v]).max()) if v.any() else 0.0
+            if not e <= atol:
+                raise AssertionError(f"{what}: {key + sfx} differ by {e} > "
+                                     f"{atol}")
+            err = max(err, e)
     return err
 
 
@@ -1611,9 +1695,11 @@ def small_train_step(device, cfg=None, batch=None, pools=None,
     batch = {k: torch.from_numpy(v).to(device)
              for k, v in (batch or small_train_batch(3)).items()}
     backbone = trainer.model.backbone
-    pool = getattr(backbone, "maxpool", None) or backbone.pool
+    # SSD's VGG has no stem pool: its five pools are PoolArgmax's alone
+    pool = getattr(backbone, "maxpool", None) or getattr(backbone, "pool",
+                                                         None)
     stem = {"pool_in": {}, "conv_grad": {},
-            "pool": (pool.kernel_size, pool.stride, pool.padding)}
+            "pool": pool and (pool.kernel_size, pool.stride, pool.padding)}
 
     def on_conv(mod, inp, out):
         key = tuple(out.shape)
@@ -1623,7 +1709,7 @@ def small_train_step(device, cfg=None, batch=None, pools=None,
     def on_pool(mod, inp, out):
         stem["pool_in"][tuple(inp[0].shape)] = inp[0].detach().cpu()
 
-    hooks = [pool.register_forward_hook(on_pool)]
+    hooks = [pool.register_forward_hook(on_pool)] if pool else []
     if hasattr(backbone, "conv1"):
         hooks.append(backbone.conv1.register_forward_hook(on_conv))
     with SampleRecorder() as rec, \
@@ -3322,6 +3408,15 @@ def pipeline_calls(cfg, train, proposals_given=False):
     f = detector_flags(cfg)
     if f["single_stage"]:
         return {"nms3d": [] if train else ["classwise"], "roi_align3d": []}
+    if f["rgb"]:
+        # per slice: proposals, bbox align, class-wise NMS, mask align
+        masks = f["with_mask"] and (train or not cfg.test_cfg.get(
+            "return_bbox_only", False))
+        return {"nms3d": [n + s for s in RGB_SUFFIXES for n in
+                          (("proposals",) if train
+                           else ("proposals", "classwise"))],
+                "roi_align3d": [n + s for s in RGB_SUFFIXES for n in
+                                ("bbox", "mask")[:1 + masks]]}
     if not f["with_bbox"]:
         return {"nms3d": [] if train else ["proposals"], "roi_align3d": []}
     nms = [] if proposals_given and not train else ["proposals"]
@@ -4459,9 +4554,18 @@ TWO_D_LAUNCHES = {
     "RetinaNet": ((1, 0), (0, 0, 0)),
     "CascadeRCNN": ((2, 3), (1, 3, 3)),
     "HybridTaskCascade": ((2, 8), (1, 12, 12)),
+    # SSD: one class-wise K1 of every anchor (an 8732-row segment an
+    # image), nothing in training; the RGB types: per slice the
+    # proposals, the bbox align, the class-wise K1 and the mask align
+    # (training: the proposals and the two aligns)
+    "SSD": ((1, 0), (0, 0, 0)),
+    "MaskRCNNRGB": ((6, 6), (3, 6, 6)),
+    "MaskRCNNRGB2": ((6, 6), (3, 6, 6)),
 }
 # the types whose full-width launches are recorded and checked alone
-TWO_D_CHECKED = ("FasterRCNN", "MaskRCNN")
+TWO_D_CHECKED = ("FasterRCNN", "MaskRCNN", "SSD", "MaskRCNNRGB")
+# full width: SSD300's train batch (mmdet's ssd300_coco.py imgs_per_gpu)
+SSD_TRAIN_BATCH = 8
 
 
 def two_d_calls(type_name, train):
@@ -4500,7 +4604,8 @@ def check_small_two_d(device, type_name):
     cfg = two_d_narrow(two_d_config(type_name), TWO_D_BUDGET)
     gpu = build(cfg, device=device)
     cpu = build(cfg, device="cpu")
-    batch = two_d_inputs(7, proposals=type_name == "FastRCNN")
+    batch = two_d_inputs(7, two_d_shape(type_name, small=True),
+                         proposals=type_name == "FastRCNN")
     zero_counts()
     a = small_run(gpu, batch)
     _check_counts(kernel_counts(), infer, 1, f"small {type_name}")
@@ -4543,20 +4648,26 @@ def two_d_proposals(gen, k, device):
 
 def two_d_train_batch_full(gen, device, type_name, num_classes):
     """The full-width 2-D train batch on the card: TRAIN_BATCH random
-    bf16 images of TWO_D_SHAPE, TWO_D_MAX_GT valid gt boxes each (x1,
-    y1 ~ U(4, 0.6 side), extent ~ U(16, 0.3 H), z [0, 0]) with labels
-    drawn from the num_classes - 1 classes; gt masks all ones (MaskRCNN,
-    HTC) and HTC's gt_semantic_seg from them (semantic_seg)."""
+    bf16 images of TWO_D_SHAPE (SSD: SSD_TRAIN_BATCH of SSD_SHAPE),
+    TWO_D_MAX_GT valid gt boxes each (x1, y1 ~ U(4, 0.6 side), extent ~
+    U(16, 0.3 H), z [0, 0]) with labels drawn from the num_classes - 1
+    classes; gt masks all ones (MaskRCNN, HTC) and HTC's gt_semantic_seg
+    from them (semantic_seg).  The RGB types: such gt for each slice
+    (gt_boxes_r, ..., gt_masks_b), the blue slice's all invalid."""
     import torch
 
-    _, h, w = TWO_D_SHAPE
-    b, g = TRAIN_BATCH, TWO_D_MAX_GT
+    if type_name in TWO_D_RGB:
+        return rgb_slices(lambda i: two_d_train_batch_full(
+            gen, device, "MaskRCNN", num_classes))
+    _, h, w = shape = two_d_shape(type_name, small=False)
+    b = SSD_TRAIN_BATCH if type_name == "SSD" else TRAIN_BATCH
+    g = TWO_D_MAX_GT
     lo = 4 + torch.rand((b, g, 2), generator=gen, device=device) \
         * torch.tensor([w * 0.6 - 4, h * 0.6 - 4], device=device)
     size = 16 + torch.rand((b, g, 2), generator=gen, device=device) \
         * (h * 0.3 - 16)
     batch = {
-        "imgs": torch.randn((b, 3, *TWO_D_SHAPE), generator=gen,
+        "imgs": torch.randn((b, 3, *shape), generator=gen,
                             device=device).to(torch.bfloat16),
         "gt_boxes": torch.cat([lo, lo + size,
                                torch.zeros((b, g, 2), device=device)], -1),
@@ -4565,7 +4676,7 @@ def two_d_train_batch_full(gen, device, type_name, num_classes):
                                    device=device, dtype=torch.int32),
     }
     if type_name in TWO_D_MASKED:
-        batch["gt_masks"] = torch.ones((b, g, *TWO_D_SHAPE),
+        batch["gt_masks"] = torch.ones((b, g, *shape),
                                        dtype=torch.uint8, device=device)
     if type_name == "HybridTaskCascade":
         batch["gt_semantic_seg"] = semantic_seg(batch)
@@ -4575,13 +4686,15 @@ def two_d_train_batch_full(gen, device, type_name, num_classes):
 def run_two_d(device, type_name, steps=3, record=False):
     """A 2-D type at full width (two_d_full_config: the shipped 2-D
     config, ResNet-50 at base width 64, FPN 256, 81 classes, its own
-    budgets), bf16: inference on one 1x800x1344 image (FastRCNN on
-    TWO_D_PROPOSALS precomputed proposals) and the train step on
-    TRAIN_BATCH images with TWO_D_MAX_GT gt each, 1 warm-up and `steps`
-    timed, the counters zeroed just before and read just after the
-    timed ones, the peak memory of each.  record: one more step of each
-    whose launches are recorded.  Returns (the record, the captured
-    inference step, the captured train step)."""
+    budgets; SSD300 as configs/ssd300_2d.py ships it), bf16: inference
+    on one 1x800x1344 image (FastRCNN on TWO_D_PROPOSALS precomputed
+    proposals; SSD on one 1x300x300 image) and the train step on
+    TRAIN_BATCH images with TWO_D_MAX_GT gt each (a slice's each for
+    the RGB types, the blue slice empty; SSD: SSD_TRAIN_BATCH images),
+    1 warm-up and `steps` timed, the counters zeroed just before and
+    read just after the timed ones, the peak memory of each.  record:
+    one more step of each whose launches are recorded.  Returns (the
+    record, the captured inference step, the captured train step)."""
     import numpy as np
     import torch
 
@@ -4592,7 +4705,8 @@ def run_two_d(device, type_name, steps=3, record=False):
     cfg = two_d_full_config(type_name)
     det = build(cfg, device=device, dtype=torch.bfloat16, seed=0)
     gen = torch.Generator(device=device).manual_seed(11)
-    batch = {"imgs": torch.randn((1, 3, *TWO_D_SHAPE), generator=gen,
+    batch = {"imgs": torch.randn((1, 3, *two_d_shape(type_name, False)),
+                                 generator=gen,
                                  device=device).to(torch.bfloat16)}
     if type_name == "FastRCNN":
         batch["proposals"] = two_d_proposals(gen, TWO_D_PROPOSALS, device)
@@ -4605,14 +4719,15 @@ def run_two_d(device, type_name, steps=3, record=False):
     b = cfg.test_cfg["rcnn"]["max_per_img"] if type_name != "RPN" \
         else cfg.test_cfg["rpn"]["max_num"]
     has_masks = type_name in TWO_D_MASKED
-    if tuple(res["dets"].shape) != (1, b, 7) or \
-            ("mask_logits" in res) != has_masks or \
-            (has_masks and tuple(res["mask_logits"].shape[2:])
-             != (1, 28, 28)) or \
-            bool((res["dets"][..., 4:6] != 0).any()):
-        shapes = {k: tuple(v.shape) for k, v in res.items()}
-        raise AssertionError(f"{type_name}: outputs {shapes}, or boxes "
-                             f"off the z = 0 plane")
+    for sfx in RGB_SUFFIXES if type_name in TWO_D_RGB else ("",):
+        if tuple(res["dets" + sfx].shape) != (1, b, 7) or \
+                ("mask_logits" + sfx in res) != has_masks or \
+                (has_masks and tuple(res["mask_logits" + sfx].shape[2:])
+                 != (1, 28, 28)) or \
+                bool((res["dets" + sfx][..., 4:6] != 0).any()):
+            shapes = {k: tuple(v.shape) for k, v in res.items()}
+            raise AssertionError(f"{type_name}: outputs {shapes}, or boxes "
+                                 f"off the z = 0 plane")
     captured = None
     if record:
         with Capture() as captured:
@@ -4630,9 +4745,13 @@ def run_two_d(device, type_name, steps=3, record=False):
     losses = {k: float(v) for k, v in losses.items()}
     if not all(np.isfinite(v) for v in losses.values()):
         raise AssertionError(f"{type_name} train: non-finite {losses}")
-    out["train"].update(losses_last=losses, batch=TRAIN_BATCH,
-                        images_per_s=TRAIN_BATCH
-                        / out["train"]["median_step_s"])
+    if type_name in TWO_D_RGB and any(
+            v for k, v in losses.items() if k.endswith("_b")):
+        raise AssertionError(f"{type_name} train: the empty blue slice's "
+                             f"losses are not 0: {losses}")
+    rows = tb["imgs"].shape[0]
+    out["train"].update(losses_last=losses, batch=rows,
+                        images_per_s=rows / out["train"]["median_step_s"])
     train_captured = None
     if record and any(train.values()):
         with Capture(tuple(TRAIN_PER_STEP)) as train_captured:
@@ -4830,7 +4949,7 @@ def run_two_d_phase(device):
 
     t0 = time.perf_counter()
     records, checks = {}, {}
-    for type_name in TWO_D:
+    for type_name in TWO_D + TWO_D_LAST:
         t = time.perf_counter()
         rec = {"small": check_small_two_d(device, type_name)}
         checked = type_name in TWO_D_CHECKED
@@ -4841,8 +4960,9 @@ def run_two_d_phase(device):
                 checks[type_name] = {"inference": check_launches(
                     cap, two_d_calls(type_name, False),
                     f"{type_name} step")}
-            checks[type_name]["train"] = check_train_step_kernels(
-                train_cap, two_d_calls(type_name, True))
+            if train_cap is not None:
+                checks[type_name]["train"] = check_train_step_kernels(
+                    train_cap, two_d_calls(type_name, True))
             del cap, train_cap
         rec["seconds"] = time.perf_counter() - t
         records[type_name] = rec

@@ -57,9 +57,11 @@ class InferenceRunner:
         Dm, Hm, Wm) of the V valid rows' predicted class, in row order])
         as numpy."""
         batch = dict(imgs=self._tensor(sample["imgs"]))
-        if self.model.num_scales >= 2:
+        if self.model.num_scales >= 2 and not self.model.rgb:
             # the 1.5x twin at most, as the JAX runner feeds
-            # (`mrcnn3d/apis/test_api.py:66`)
+            # (`mrcnn3d/apis/test_api.py:66`, which asks the RGB types'
+            # one image for a twin too); the RGB types' detections are
+            # slice r's (`pipeline.rgb_simple_test`)
             batch["imgs_2"] = self._tensor(sample["imgs_2"])
         out = self.det.simple_test(batch)
         dets, labels, valid = out["dets"][0], out["labels"][0], out["valid"][0]

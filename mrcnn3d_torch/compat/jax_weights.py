@@ -18,7 +18,11 @@ The backbone's names: ResNet3D's and ResNeXt3D's `layer{i}_{j}` blocks
 become `backbone.layer{i}.{j}` (conv1-2 of a basic block, conv1-3 of a
 bottleneck; flax's grouped kernel (k, k, k, I/groups, O) takes the same
 transpose as a plain one); UNet3D's `enc{i}_conv{j}`, `dec{i}_conv{j}`
-keep their names.
+keep their names.  SSD's VGG16 (`features_{li}`, `fc6`, `fc7`,
+`extra_{ei}`, `l2_norm`) becomes mmdet's `backbone.features.{li}` (fc6
+`features.31`, fc7 `features.33`), `backbone.extra.{ei}` and
+`backbone.l2_norm.weight`, and its `ssd_head` (`cls_conv_{i}`,
+`reg_conv_{i}`) `bbox_head.cls_convs.{i}`, `bbox_head.reg_convs.{i}`.
 
 The heads' names follow the model's kind.  The JAX package numbers its
 heads `bbox_head_{i}` / `mask_head_{i}` by scale in the two-stage types
@@ -108,6 +112,13 @@ def state_dict_from_jax(variables, roi_shape=(3, 7, 7)):
         return None if s is None else s[key]
 
     bp, bs = params["backbone"], sub(stats, "backbone")
+    ssd_names = {"fc6": "features.31", "fc7": "features.33"}
+    for name in bp:
+        if name.startswith(("features_", "extra_")) or name in ssd_names:
+            dst = ssd_names.get(name, name.replace("_", "."))
+            conv(bp[name], f"backbone.{dst}", True)
+    if "l2_norm" in bp:
+        put("backbone.l2_norm.weight", bp["l2_norm"]["weight"])
     if "conv1" in bp:
         conv(bp["conv1"], "backbone.conv1")
         bn(bp["bn1"], sub(bs, "bn1"), "backbone.bn1")
@@ -131,7 +142,7 @@ def state_dict_from_jax(variables, roi_shape=(3, 7, 7)):
             bn(p["downsample_bn"], sub(s, "downsample_bn"),
                f"{dst}.downsample.1")
 
-    neck = params["neck"]
+    neck = params.get("neck", {})
     i = 0
     while f"lateral_{i}" in neck:
         conv(neck[f"lateral_{i}"], f"neck.lateral_convs.{i}.conv", True)
@@ -143,6 +154,12 @@ def state_dict_from_jax(variables, roi_shape=(3, 7, 7)):
         while f"{prefix}_{i}" in src:
             yield i, src[f"{prefix}_{i}"]
             i += 1
+
+    ssd_head = params.get("ssd_head", {})
+    for i, p in numbered(ssd_head, "cls_conv"):
+        conv(p, f"bbox_head.cls_convs.{i}", True)
+    for i, p in numbered(ssd_head, "reg_conv"):
+        conv(p, f"bbox_head.reg_convs.{i}", True)
 
     # one RPN head under one_rpn: rpn_head_0 alone -> rpn_head
     for s, head in numbered(params, "rpn_head"):

@@ -2,7 +2,8 @@
 
 A copy of `mrcnn3d/core/anchors.py` (reference
 mmdet/core/anchor/anchor_generator_3d.py:6-92) for the anchor heads the
-port runs.  Anchors are flattened in (z, y, x, base) order, which is the
+port runs, SSD's per-level generators (`ssd_anchor_generators`) among
+them.  Anchors are flattened in (z, y, x, base) order, which is the
 order of an RPN output permuted to (B, d, h, w, A) and reshaped.
 """
 from __future__ import annotations
@@ -84,6 +85,58 @@ class AnchorGenerator3D:
         vzz, vyy, vxx = np.meshgrid(vz, vy, vx, indexing="ij")
         valid = (vxx & vyy & vzz).ravel()
         return np.repeat(valid, self.num_base_anchors)
+
+
+def ssd_anchor_generators(anchor_cfg):
+    """Per-level SSD anchor generators (`mrcnn3d/core/anchors.py:114-170`;
+    reference ssd_head.py:49-88).
+
+    Per level k: base_size = min_sizes[k], scales [1, sqrt(max/min)],
+    ratios [1] + [1/r, r for r in the level's ratios], the centre at
+    ((stride - 1) / 2, (stride - 1) / 2, 0); the reference's base-anchor
+    selection (torch's scale-outer rows [0, R, 1, ..., R-1]) is, in this
+    generator's ratio-outer order, rows [0, 1, 2, 4, ..., 2(R-1)], so each
+    level has 2 * len(ratios_k) + 2 anchors.  Depth is degenerate (the
+    2-D family): z extents [0, 0].
+    """
+    input_size = int(anchor_cfg.get("input_size", 300))
+    strides = anchor_cfg["anchor_strides"]
+    ratios_per_level = anchor_cfg["anchor_ratios"]
+    lo, hi = anchor_cfg["basesize_ratio_range"]
+    min_ratio, max_ratio = int(lo * 100), int(hi * 100)
+    step = int(np.floor(max_ratio - min_ratio) / (len(strides) - 2))
+    min_sizes, max_sizes = [], []
+    for r in range(min_ratio, max_ratio + 1, step):
+        min_sizes.append(int(input_size * r / 100))
+        max_sizes.append(int(input_size * (r + step) / 100))
+    # first-level inserts (reference ssd_head.py:58-71)
+    first = {
+        (300, 0.15): (7, 15), (300, 0.2): (10, 20),
+        (512, 0.1): (4, 10), (512, 0.15): (7, 15),
+    }.get((input_size, lo))
+    if first is not None:
+        min_sizes.insert(0, int(input_size * first[0] / 100))
+        max_sizes.insert(0, int(input_size * first[1] / 100))
+    gens = []
+    for k, stride in enumerate(strides):
+        ratios = [1.0]
+        for r in ratios_per_level[k]:
+            ratios += [1.0 / r, r]
+        scales = [1.0, np.sqrt(max_sizes[k] / min_sizes[k])]
+        gen = AnchorGenerator3D(
+            base_size=min_sizes[k],
+            scales=scales,
+            depth_scales=[1.0] * len(scales),
+            ratios=ratios,
+            anchor_depth_base=1,
+            ctr=((stride - 1) / 2.0, (stride - 1) / 2.0, 0.0),
+        )
+        indices = [0, 1] + [2 * i for i in range(1, len(ratios))]
+        base = gen.base_anchors[indices]
+        base[:, 4:6] = 0.0
+        gen.base_anchors = base
+        gens.append(gen)
+    return gens
 
 
 def anchor_inside_flags(anchors, valid_flags, img_shape, allowed_border=0):

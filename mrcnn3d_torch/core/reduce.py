@@ -36,11 +36,9 @@ def loss_group(group):
         _LOSS_GROUP.reset(token)
 
 
-def global_sum(x):
-    """A batch statistic (a loss normalizer, an accuracy's counts) summed
-    over the active `loss_group`, detached; `x` itself within
-    `loss_group(None)`, or outside a loss group when no process group of
-    more than one rank is active."""
+def _active_group():
+    """The active loss group, None for this rank's rows alone; raises
+    outside a loss group under a process group of more than one rank."""
     group = _LOSS_GROUP.get()
     if group is _UNSET:
         if dist.is_available() and dist.is_initialized() \
@@ -50,9 +48,31 @@ def global_sum(x):
                 f"{dist.get_world_size()} ranks outside a loss group: enter "
                 "core.reduce.loss_group(the data group), or "
                 "loss_group(None) for this rank's rows alone")
-        return x
+        return None
+    return group
+
+
+def global_sum(x):
+    """A batch statistic (a loss normalizer, an accuracy's counts) summed
+    over the active `loss_group`, detached; `x` itself within
+    `loss_group(None)`, or outside a loss group when no process group of
+    more than one rank is active."""
+    group = _active_group()
     if group is None:
         return x
     x = x.detach().clone()
     dist.all_reduce(x, group=group)
+    return x
+
+
+def global_all(x):
+    """Whether a batch condition (a bool tensor) holds for every row of
+    the active `loss_group`'s global batch, as a float32 0-d tensor (1 or
+    0): `x.all()` here, then the minimum over the group; the groups as
+    for `global_sum`."""
+    x = x.all().float()
+    group = _active_group()
+    if group is None:
+        return x
+    dist.all_reduce(x, op=dist.ReduceOp.MIN, group=group)
     return x

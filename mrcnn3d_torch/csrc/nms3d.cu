@@ -28,7 +28,12 @@
 //           words of its later tiles: 64 independent loads per word it
 //           owns, selected by the kept bits.  The next tile's mask rows
 //           stream into shared memory with cp.async, and the next tile's
-//           valid flags load, while this tile is resolved.
+//           valid flags load, while this tile is resolved.  A segment of
+//           more than 128 tiles (8192 rows; SSD300 feeds 8732 anchors to
+//           one class's NMS) would need more shared memory for the two
+//           buffers than a block has, so its scan reads the mask rows
+//           straight from device memory, up to 12 words a lane: 384
+//           tiles, 24576 rows.
 // Problems ("segments") are independent, so one launch of each pass
 // covers e.g. the 5 FPN levels of a scale.  Sorting stays outside, as
 // stable torch sorts.  The chain of 64 steps per tile and the OR after
@@ -45,7 +50,8 @@
 namespace {
 
 constexpr int kTile = 64;
-constexpr int kMaxTiles = 128;  // 4 words per lane: 8192 rows
+constexpr int kMaxTiles = 384;  // 12 words per lane: 24576 rows
+constexpr int kMaxStagedSlots = 4;  // 128 tiles staged in shared memory
 constexpr int kSplit = 4;       // mask-pass threads per row
 constexpr int kMaskThreads = kTile * kSplit;
 
@@ -149,7 +155,10 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // one warp per segment: the greedy scan over the sorted rows; lane l owns
-// the removed words of column tiles l + 32 s, s < SLOTS
+// the removed words of column tiles l + 32 s, s < SLOTS.  Up to
+// kMaxStagedSlots the row tiles are staged in shared memory; past it they
+// are read from device memory, and slots that hold no later tile of the
+// warp are skipped.
 template <int SLOTS>
 __global__ void __launch_bounds__(32)
 nms3d_scan_kernel(const unsigned char* __restrict__ valid,
@@ -165,6 +174,7 @@ nms3d_scan_kernel(const unsigned char* __restrict__ valid,
   const int words = (n + kTile - 1) / kTile;
   const unsigned long long* m = mask + sg.mask_off[seg];
   const unsigned full = 0xffffffffu;
+  constexpr bool kStaged = SLOTS <= kMaxStagedSlots;
 
   // row tile t -> buffer t & 1 (64 * (words - t) words, an even count)
   auto stage = [&](int t) {
@@ -187,19 +197,22 @@ nms3d_scan_kernel(const unsigned char* __restrict__ valid,
 
   bool v0 = false, v1 = false;
   if (words > 0) {
-    stage(0);
+    if constexpr (kStaged) stage(0);
     v0 = valid_at(0, lane);
     v1 = valid_at(0, 32 + lane);
   }
   for (int t = 0; t < words; ++t) {
-    if (t + 1 < words) {
-      stage(t + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+    if constexpr (kStaged) {
+      if (t + 1 < words) {
+        stage(t + 1);
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
     }
     __syncwarp();
-    const unsigned long long* rows = rows_buf + (t & 1) * kTile * words;
+    const unsigned long long* rows =
+        kStaged ? rows_buf + (t & 1) * kTile * words : m + tile_base(t, words);
     const int stride = words - t;
     const int i0 = t * kTile;
 
@@ -238,6 +251,8 @@ nms3d_scan_kernel(const unsigned char* __restrict__ valid,
     if (cand) {
 #pragma unroll
       for (int s = 0; s < SLOTS; ++s) {
+        if constexpr (!kStaged)
+          if (32 * s + 31 <= t || 32 * s >= words) continue;
         const int ct = lane + 32 * s;
         const bool later = ct > t && ct < words;
         const unsigned long long* col = rows + (later ? ct - t : 0);
@@ -258,7 +273,9 @@ template <int SLOTS>
 cudaError_t launch_scan(const void* valid, const void* table, int nseg,
                         const void* mask, void* keep, int tiles,
                         cudaStream_t s) {
-  const int smem = 2 * kTile * tiles * static_cast<int>(sizeof(long long));
+  const int smem = SLOTS <= kMaxStagedSlots
+                       ? 2 * kTile * tiles * static_cast<int>(sizeof(long long))
+                       : 0;
   cudaError_t err = cudaFuncSetAttribute(
       nms3d_scan_kernel<SLOTS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
@@ -278,7 +295,7 @@ cudaError_t launch_scan(const void* valid, const void* table, int nseg,
 // segments' first rows, row counts and mask offsets; segment s holds rows
 // [start_s, start_s + count_s) and its mask words from mask_off_s on,
 // 64 * W_s * (W_s + 1) / 2 of them (W_s = ceil(count_s / 64)).  keep
-// (total,) u8 (a bool tensor) out, per sorted row.  max_count <= 8192.
+// (total,) u8 (a bool tensor) out, per sorted row.  max_count <= 24576.
 extern "C" int mrcnn3d_nms3d(const void* boxes, const void* valid,
                              const void* table, void* mask, void* keep,
                              int num_segments, int max_count, float thr,
@@ -297,7 +314,13 @@ extern "C" int mrcnn3d_nms3d(const void* boxes, const void* valid,
     err = launch_scan<1>(valid, table, num_segments, mask, keep, tiles, s);
   else if (tiles <= 64)
     err = launch_scan<2>(valid, table, num_segments, mask, keep, tiles, s);
-  else
+  else if (tiles <= 128)
     err = launch_scan<4>(valid, table, num_segments, mask, keep, tiles, s);
+  else if (tiles <= 192)
+    err = launch_scan<6>(valid, table, num_segments, mask, keep, tiles, s);
+  else if (tiles <= 256)
+    err = launch_scan<8>(valid, table, num_segments, mask, keep, tiles, s);
+  else
+    err = launch_scan<12>(valid, table, num_segments, mask, keep, tiles, s);
   return static_cast<int>(err);
 }

@@ -1,6 +1,11 @@
-"""Legacy 2-D datasets: VOC/XML and the Concat/Repeat wrappers (the
-port's copy of `mrcnn3d/data/legacy2d.py:32-76, :150-287`).
+"""Legacy 2-D datasets: RGB 2.5-D, VOC/XML and the Concat/Repeat
+wrappers (the port's copy of `mrcnn3d/data/legacy2d.py`).
 
+  * CocoRGBDataset (reference coco_rgb.py): one RGB image whose channels
+    are adjacent volume slices; each annotation's `slice_label` (r, g or
+    b) names the slice whose head set trains on it, so a sample carries
+    gt_boxes / gt_valid / gt_labels under the suffixes _r, _g, _b, which
+    the loader collates as they are.
   * XMLDataset / VOCDataset (reference xml_style.py, voc.py): VOC-style
     XML annotations (JPEGImages/ + Annotations/), difficult boxes kept
     apart as ignored ones.
@@ -8,13 +13,13 @@ port's copy of `mrcnn3d/data/legacy2d.py:32-76, :150-287`).
     repeat_dataset.py): composition wrappers.
 
 Samples are depth-1 channel-last volumes (1, H, W, 3) with z extents
-[0, 0], the 2-D detector family's batch schema.  Images are .npy arrays
-or files PIL reads; PIL is imported only when such a file is read.  The
-RGB 2.5-D dataset (CocoRGBDataset) comes with its detectors, ROADMAP
-Queue A item 11.8 (c).
+[0, 0], the 2-D detector family's batch schema (the loader permutes the
+images to NCDHW).  Images are .npy arrays or files PIL reads; PIL is
+imported only when such a file is read.
 """
 from __future__ import annotations
 
+import json
 import os.path as osp
 import xml.etree.ElementTree as ET
 
@@ -76,6 +81,64 @@ class Legacy2DBase:
     def __getitem__(self, idx):
         return (self.prepare_test(idx) if self.test_mode
                 else self.prepare_train(idx))
+
+
+class CocoRGBDataset(Legacy2DBase):
+    """COCO-json RGB 2.5-D dataset (`mrcnn3d/data/legacy2d.py:78-146`;
+    reference coco_rgb.py:11-132).  Outside test_mode, images without any
+    annotation are dropped."""
+
+    SLICES = ("r", "g", "b")
+
+    def __init__(self, ann_file, img_prefix, img_norm_cfg, **kwargs):
+        super().__init__(img_norm_cfg, **kwargs)
+        self.img_prefix = img_prefix
+        with open(ann_file) as f:
+            self.coco = json.load(f)
+        self.img_infos = self.coco["images"]
+        self.anns_by_img = {}
+        for ann in self.coco["annotations"]:
+            self.anns_by_img.setdefault(ann["image_id"], []).append(ann)
+        if not self.test_mode:
+            self.img_infos = [i for i in self.img_infos
+                              if self.anns_by_img.get(i["id"])]
+
+    def __len__(self):
+        return len(self.img_infos)
+
+    def slice_gt(self, img_id):
+        """{slice: (boxes (n, 6), labels (n,))} grouped by slice_label
+        (default r), COCO [x, y, w, h] as [x, y, x + w - 1, y + h - 1]
+        (reference :62-79)."""
+        out = {}
+        for key in self.SLICES:
+            anns = [a for a in self.anns_by_img.get(img_id, [])
+                    if a.get("slice_label", "r") == key]
+            boxes = [[a["bbox"][0], a["bbox"][1],
+                      a["bbox"][0] + a["bbox"][2] - 1,
+                      a["bbox"][1] + a["bbox"][3] - 1] for a in anns]
+            labels = np.array([a.get("category_id", 1) for a in anns],
+                              np.int32)
+            out[key] = (boxes_2d_to_6dof(boxes), labels)
+        return out
+
+    def _image(self, idx):
+        return load_image(osp.join(self.img_prefix,
+                                   self.img_infos[idx]["file_name"]))
+
+    def prepare_train(self, idx):
+        info = self.img_infos[idx]
+        sample = dict(imgs=self.prep_img(self._image(idx)))
+        for key, (boxes, labels) in self.slice_gt(info["id"]).items():
+            g = pad_gt(boxes, labels, self.max_gt)
+            for name in ("gt_boxes", "gt_valid", "gt_labels"):
+                sample[f"{name}_{key}"] = g[name]
+        return sample
+
+    def prepare_test(self, idx):
+        img = self._image(idx)
+        return dict(imgs=self.prep_img(img), img_info=self.img_infos[idx],
+                    ori_shape=(1, img.shape[0], img.shape[1]))
 
 
 class XMLDataset(Legacy2DBase):

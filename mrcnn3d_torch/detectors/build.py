@@ -8,8 +8,12 @@ each is a row of flags; the single-stage and cascade families
 family (RPN, FasterRCNN, FastRCNN, MaskRCNN, RetinaNet, CascadeRCNN,
 HybridTaskCascade), the same flags with `two_d`: depth-1 volumes through
 (1, k, k) kernels, a base width of 64 unless the config gives one
-(`build.py:113-115`).  `backbone.with_cp` is read where the JAX package
-reads it (`build.py:137`).  The config keys read
+(`build.py:113-115`); SSD, whose head lives under `bbox_head` and which
+has no neck (`build.py:40-43, :97-103`); and the RGB 2.5-D family
+(MaskRCNNRGB, MaskRCNNRGB2: three unshared head sets on one image,
+`build.py:44-48`).  Every type of the JAX package's `_TYPES` is here.
+`backbone.with_cp` is read where the JAX package reads it
+(`build.py:137`).  The config keys read
 here are the ones `mrcnn3d/detectors/build.py` reads, so narrowed widths
 (`backbone.base_width`, `neck.out_channels`, `fc_out_channels`) build
 the same shapes in both packages.
@@ -56,15 +60,15 @@ TYPES = {
                         cascade=True),
     "HybridTaskCascade": dict(num_scales=1, with_mask=True, two_d=True,
                               cascade=True, htc=True),
+    "SSD": dict(num_scales=1, with_bbox=False, with_mask=False,
+                single_stage=True, two_d=True, ssd=True),
+    # one RGB image of adjacent slices, a head set per slice
+    "MaskRCNNRGB": dict(num_scales=3, share_heads=False, two_d=True,
+                        rgb=True),
+    "MaskRCNNRGB2": dict(num_scales=3, share_heads=False, two_d=True,
+                         rgb=True),
 }
 SUPPORTED = tuple(TYPES)
-
-# the JAX package's other types, by the ROADMAP Queue A item that ports them
-NOT_PORTED = {
-    "SSD": "11.8 (b) (SSD: its VGG backbone, head, anchors and loss)",
-    **dict.fromkeys(("MaskRCNNRGB", "MaskRCNNRGB2"),
-                    "11.8 (c) (the RGB 2.5-D family)"),
-}
 
 # parcellation classes when the config names none (`build.py:83-85`)
 DEFAULT_PARCELLATIONS = 15
@@ -74,16 +78,13 @@ def detector_flags(cfg):
     """The Detector3D flags of cfg.model's type, defaults filled in as
     `mrcnn3d/detectors/build.py:64-105` fills them: a cascade's stage
     count is len(train_cfg.rcnn) when that is a list, else 3; HTC's
-    semantic flags come from model.semantic_head."""
+    semantic flags come from model.semantic_head; SSD's input size from
+    model.backbone and its anchors a level, 2 * len(ratios) + 2, from
+    model.bbox_head."""
     m = cfg.model
     kind = m["type"]
     if kind not in TYPES:
-        where = NOT_PORTED.get(kind)
-        if where is None:
-            raise KeyError(f"unknown detector type {kind!r}")
-        raise NotImplementedError(
-            f"detector type {kind!r} is not ported yet: ROADMAP Queue A "
-            f"item {where}; the port builds {SUPPORTED}")
+        raise KeyError(f"unknown detector type {kind!r}")
     flags = dict(TYPES[kind])
     flags.setdefault("with_bbox", True)
     flags.setdefault("with_mask", "mask_head" in m)
@@ -104,6 +105,11 @@ def detector_flags(cfg):
     flags["cascade_stages"] = stages
     flags.setdefault("htc", False)
     flags.setdefault("two_d", False)
+    flags.setdefault("rgb", False)
+    if flags.setdefault("ssd", False):
+        flags["ssd_input_size"] = m["backbone"].get("input_size", 300)
+        flags["ssd_num_anchors"] = tuple(
+            len(r) * 2 + 2 for r in m["bbox_head"]["anchor_ratios"])
     flags["with_cp"] = bool(m.get("backbone", {}).get("with_cp", False))
     sem = m.get("semantic_head") if flags["htc"] else None
     flags["with_semantic"] = sem is not None
@@ -133,16 +139,17 @@ def build_detector(cfg, dtype=torch.float32, device=None, seed=0,
     flags = detector_flags(cfg)
     device = resolve_device(device)
     m = cfg.model
-    rpn_head = m["rpn_head"]
+    rpn_head = m.get("rpn_head") or {}
     bbox_head = m.get("bbox_head", {})
     bbox_roi = m.get("bbox_roi_extractor", {}).get("roi_layer", {})
+    neck = m.get("neck") or {}
     model = Detector3D(
         depth=m["backbone"].get("depth", 50),
         base_width=m["backbone"].get("base_width",
                                      64 if flags["two_d"] else 16),
         backbone_type=m["backbone"].get("type", "ResNet3D"),
-        fpn_channels=m["neck"].get("out_channels", 64),
-        num_outs=m["neck"].get("num_outs", 5),
+        fpn_channels=neck.get("out_channels", 64),
+        num_outs=neck.get("num_outs", 5),
         num_classes=bbox_head.get("num_classes", 2),
         num_anchors=max(
             1,
@@ -190,7 +197,8 @@ def init_train_weights(model, generator):
     """Where the JAX package's `model.init` starts training: flax's
     lecun_normal kernels (a truncated normal of std 1 / sqrt(fan_in)),
     zero biases, frozen BN at identity (mean 0, var 1, weight 1, bias 0,
-    `mrcnn3d/models/layers.py:FrozenBatchNorm`)."""
+    `mrcnn3d/models/layers.py:FrozenBatchNorm`); SSD's L2Norm keeps its
+    scale of 20."""
     with torch.no_grad():
         for mod in model.modules():
             n = fan_in(mod)
@@ -210,7 +218,8 @@ def init_train_weights(model, generator):
 def init_weights(model, generator):
     """Seeded random weights for the inference build: plain-normal
     kernels of std 1 / sqrt(fan_in), zero biases, frozen-BN statistics
-    near identity (drawn, so that the parity checks exercise them)."""
+    near identity (drawn, so that the parity checks exercise them);
+    SSD's L2Norm keeps its scale of 20."""
     for mod in model.modules():
         n = fan_in(mod)
         if n is not None:
@@ -230,15 +239,18 @@ def init_weights(model, generator):
 
 
 def anchor_cfgs(cfg):
-    """Per-scale anchor config dicts (rpn_head, rpn_head_2, rpn_head_3),
-    padded to the type's scale count with the last one given: the
-    one-RPN variant configures one rpn_head for every pathway (reference
-    two_stage_3d_onepathway_onerpn.py:142-143; `build.py:144-159`)."""
-    out = [cfg.model["rpn_head"]]
+    """Per-scale anchor config dicts (rpn_head, rpn_head_2, rpn_head_3;
+    bbox_head for a head that lives there, SSD's), padded to the type's
+    scale count with the last one given: the one-RPN variant configures
+    one rpn_head for every pathway (reference
+    two_stage_3d_onepathway_onerpn.py:142-143; `build.py:144-159`).  The
+    RGB family's slices share one image and its anchors: not padded."""
+    out = [cfg.model.get("rpn_head") or cfg.model["bbox_head"]]
     for key in ("rpn_head_2", "rpn_head_3"):
         if key in cfg.model:
             out.append(cfg.model[key])
-    while len(out) < TYPES.get(cfg.model.get("type"), {}).get(
-            "num_scales", 1):
-        out.append(out[-1])
+    kind = TYPES.get(cfg.model.get("type"), {})
+    if not kind.get("rgb"):
+        while len(out) < kind.get("num_scales", 1):
+            out.append(out[-1])
     return out

@@ -31,17 +31,31 @@ launch per stage on the semantic map (one level) and, for the masks, one
 on the FPN and one on the semantic map (inference: K1 2, K2 8; training:
 K1 1, K2 and its backward 12).
 
+SSD (`ssd_test`, `ssd_loss`): the softmax scores of every anchor of
+every level, decoded, go to one class-wise K1 launch with no pre-NMS
+top-k (SSD300: an 8732-row segment an image and class); its training
+launches no kernel.  The RGB 2.5-D family (`rgb_simple_test`,
+`rgb_forward_train`): one feature pass, then per slice the proposals
+(K1), the bbox align (K2), the class-wise NMS (K1) and the mask align
+(K2) at inference (K1 6, K2 6), the proposals, the bbox align and the
+mask align in training (K1 3, K2 and its backward 6).
+
 Stable sorts stand in for JAX's argsort and lax.top_k, which break ties
 toward the lower index.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Sequence
 
 import torch
 import torch.nn.functional as F
 
-from ..core.anchors import AnchorGenerator3D, anchor_inside_flags
+from ..core.anchors import (
+    AnchorGenerator3D,
+    anchor_inside_flags,
+    ssd_anchor_generators,
+)
 from ..core.post import multiclass_nms_3d
 from ..core.targets import (
     anchor_target_focal_single,
@@ -64,7 +78,7 @@ from ..ops.losses import (
 from ..ops.nms3d import nms_3d_mask_segments, sort_desc, top_kept
 from ..ops.resize3d import jax_resize
 from ..ops.roi_align3d import multi_level_roi_align_3d
-from ..core.reduce import global_sum
+from ..core.reduce import global_all, global_sum
 
 RPN_MEANS = (0.0,) * 6
 RPN_STDS = (1.0,) * 6
@@ -72,8 +86,10 @@ MASK_HEAD_CHUNK = 512
 
 
 def rpn_codec(cfg):
-    """RPN box codec (means, stds) from the model config."""
-    head = cfg.model.get("rpn_head", {})
+    """RPN box codec (means, stds) from the model config: rpn_head's, or
+    bbox_head's for a single-stage head that lives there (SSD;
+    `mrcnn3d/detectors/pipeline.py:68-79`)."""
+    head = cfg.model.get("rpn_head") or cfg.model.get("bbox_head", {})
     means = tuple(head.get("target_means", RPN_MEANS))
     stds = tuple(head.get("target_stds", RPN_STDS))
     return means, stds
@@ -92,19 +108,24 @@ def build_anchor_set(featmap_sizes, img_shape, anchor_cfg, device="cpu",
 
     img_shape: (H, W, C, D) reference layout; anchor_cfg: the rpn_head
     dict (anchor_scales / anchor_depth_scales / anchor_ratios /
-    anchor_strides / anchor_strides_depth).
+    anchor_strides / anchor_strides_depth), or SSD's bbox_head, whose
+    basesize_ratio_range selects its per-level generators.
     """
     strides = anchor_cfg["anchor_strides"]
     dstrides = anchor_cfg.get("anchor_strides_depth", [1] * len(strides))
-    anchors, inside = [], []
-    for lvl, size in enumerate(featmap_sizes):
-        gen = AnchorGenerator3D(
+    if "basesize_ratio_range" in anchor_cfg:
+        gens = ssd_anchor_generators(anchor_cfg)
+    else:
+        gens = [AnchorGenerator3D(
             base_size=strides[lvl],
             scales=anchor_cfg["anchor_scales"],
             depth_scales=anchor_cfg["anchor_depth_scales"],
             ratios=anchor_cfg["anchor_ratios"],
             anchor_depth_base=dstrides[lvl],
-        )
+        ) for lvl in range(len(featmap_sizes))]
+    anchors, inside = [], []
+    for lvl, size in enumerate(featmap_sizes):
+        gen = gens[lvl]
         a = gen.grid_anchors(size, strides[lvl], dstrides[lvl])
         flags = gen.valid_flags(size, size)
         ins = anchor_inside_flags(a, flags, img_shape, allowed_border)
@@ -230,9 +251,10 @@ SUFFIXES = ("", "_2", "_3")
 
 
 def scale_shapes(model, batch):
-    """The (D, H, W) input of each of the model's scales in `batch`."""
+    """The (D, H, W) input of each of the model's scales in `batch` (one
+    image for the RGB family, whose slices share it)."""
     return [tuple(batch["imgs" + SUFFIXES[s]].shape[2:])
-            for s in range(model.num_scales)]
+            for s in range(1 if model.rgb else model.num_scales)]
 
 
 def simple_test(model, batch, cfg, anchor_sets, rescale=True, mark=None):
@@ -248,6 +270,10 @@ def simple_test(model, batch, cfg, anchor_sets, rescale=True, mark=None):
     head (RPN3D) the 1.0x proposals are the detections, label 0.
     """
     mark = mark or _no_mark
+    if model.ssd:
+        return ssd_test(model, batch, cfg, anchor_sets, mark)
+    if model.rgb:
+        return rgb_simple_test(model, batch, cfg, anchor_sets, mark)
     if model.single_stage:
         return single_stage_test(model, batch, cfg, anchor_sets, mark)
     if model.cascade_stages > 0:
@@ -363,10 +389,10 @@ def simple_test(model, batch, cfg, anchor_sets, rescale=True, mark=None):
     return out
 
 
-def mask_stage(model, feats, dets, dvalid, refined, mask_roi_cfg):
+def mask_stage(model, feats, dets, dvalid, refined, mask_roi_cfg, scale=0):
     """Mask logits for every detection slot (zeros for invalid slots).
 
-    One align over the valid slots only, then the mask heads, at most
+    One align over the valid slots only, then scale's mask head, at most
     MASK_HEAD_CHUNK rows per call; with `refined` (B*max_per_img,) bool,
     the rows from the 1.5x pathway go to the refinement mask head
     (reference :385-434 splits by provenance too).
@@ -381,10 +407,11 @@ def mask_stage(model, feats, dets, dvalid, refined, mask_roi_cfg):
                       device=mfeat.device)
     # positions in `rows` (and so in mfeat), per head
     pos = torch.arange(rows.shape[0], device=rows.device)
-    groups = [(pos, model.mask_forward)]
+    head = functools.partial(model.mask_forward, scale=scale)
+    groups = [(pos, head)]
     if refined is not None:
         sel = refined[rows]
-        groups = [(pos[~sel], model.mask_forward),
+        groups = [(pos[~sel], head),
                   (pos[sel], model.refinement_mask_forward)]
     for idx, head in groups:
         for chunk in torch.split(idx, MASK_HEAD_CHUNK):
@@ -566,6 +593,11 @@ def forward_train(model, batch, cfg, anchor_sets, draws, mark=None,
     whose key contains "loss".
     """
     mark = mark or _no_mark
+    if model.ssd:
+        return ssd_forward_train(model, batch, cfg, anchor_sets, mark)
+    if model.rgb:
+        return rgb_forward_train(model, batch, cfg, anchor_sets, draws, mark,
+                                 offset)
     if model.single_stage:
         return single_stage_forward_train(model, batch, cfg, anchor_sets,
                                           mark)
@@ -1072,4 +1104,213 @@ def cascade_forward_train(model, batch, cfg, anchor_sets, draws,
             losses[f"s{t}.loss_mask"] = w * _htc_mask_stage_loss(
                 model, feats, sem_feat, msamples, t, batch, cfg, rc)
             mark(f"mask_{t}")
+    return _total(losses), losses
+
+
+# ---------------------------------------------------------------------------
+# SSD
+# ---------------------------------------------------------------------------
+
+
+def ssd_test(model, batch, cfg, anchor_sets, mark=_no_mark):
+    """SSD inference (`mrcnn3d/detectors/pipeline.py` ssd_test_single,
+    vmapped there; reference anchor_head.get_bboxes with softmax scores):
+    every anchor of every level, no pre-NMS top-k, its softmax scores
+    (background column 0) and decoded box, then the class-wise NMS of
+    all of them (one K1 launch).  Returns dict(dets, labels, valid)."""
+    rcnn = cfg.test_cfg["rcnn"]
+    means, stds = rpn_codec(cfg)
+    nc = model.num_classes
+    imgs = batch["imgs"]
+    b = imgs.shape[0]
+    feats = model.extract_feat(imgs)
+    mark("backbone")
+    boxes, scores = [], []
+    for (cls, reg), anchors in zip(model.rpn(feats), anchor_sets[0].anchors):
+        scores.append(torch.softmax(_level_rows(cls.float(), b, nc), -1))
+        boxes.append(delta2bbox3d(
+            anchors.expand(b, -1, 6), _level_rows(reg.float(), b, 6),
+            means, stds, _img_shape(imgs)))
+    scores = torch.cat(scores, 1)
+    valid = torch.ones(scores.shape[:2], dtype=torch.bool,
+                       device=scores.device)
+    mark("decode")
+    dets, labels, dvalid, _ = multiclass_nms_3d(
+        torch.cat(boxes, 1), scores, valid, rcnn["score_thr"],
+        rcnn["nms"]["iou_thr"], rcnn["max_per_img"])
+    mark("nms")
+    return dict(dets=dets, labels=labels, valid=dvalid)
+
+
+def ssd_loss(cls_outs, reg_outs, anchor_set, gt_boxes, gt_valid, gt_labels,
+             cfg_ss, num_classes, means=RPN_MEANS, stds=RPN_STDS):
+    """SSD's MultiBox loss (`mrcnn3d/detectors/pipeline.py` ssd_loss;
+    reference ssd_head.py:109-191): the focal head's anchor targets (no
+    sampling), softmax cross-entropy of every positive and of each
+    image's min(neg_pos_ratio * positives, negatives) hardest negatives
+    (a stable descending sort, as JAX's: tied losses keep the lower
+    anchor first, so the sum and its gradient do not depend on the sort),
+    smooth L1 of the positives; both over the batch's positives.
+    cls_outs[l] (B, A_l * C, d, h, w); reg_outs[l] (B, A_l * 6, d, h, w)."""
+    b = cls_outs[0].shape[0]
+    cls_flat = torch.cat([_level_rows(c, b, num_classes) for c in cls_outs],
+                         1)
+    reg_flat = torch.cat([_level_rows(r, b, 6) for r in reg_outs], 1)
+    anchors = torch.cat(list(anchor_set.anchors))
+    inside = torch.cat(list(anchor_set.inside))
+    per_image = [
+        anchor_target_focal_single(anchors, inside, gt_boxes[i],
+                                   gt_valid[i], gt_labels[i], cfg_ss, means,
+                                   stds)
+        for i in range(b)
+    ]
+    tgt = {k: torch.stack([t[k] for t in per_image]) for k in per_image[0]}
+    labels, weights = tgt["labels"], tgt["label_weights"]
+    is_pos = (labels > 0) & (weights > 0)
+    is_neg = (labels == 0) & (weights > 0)
+    num_total_pos = torch.clamp(global_sum(is_pos.sum().float()), min=1.0)
+    logp = torch.log_softmax(cls_flat.float(), -1)
+    ce = -torch.gather(logp, -1, labels[..., None])[..., 0] * weights
+    k_neg = torch.minimum(
+        (float(cfg_ss.get("neg_pos_ratio", 3)) * is_pos.sum(1)).long(),
+        is_neg.sum(1))
+    neg_sorted = sort_desc(torch.where(is_neg, ce, float("-inf")))[0]
+    rank = torch.arange(ce.shape[1], device=ce.device)
+    keep = (rank < k_neg[:, None]) & torch.isfinite(neg_sorted)
+    loss_cls = (torch.where(is_pos, ce, 0.0).sum()
+                + torch.where(keep, neg_sorted, 0.0).sum()) / num_total_pos
+    loss_reg = weighted_smoothl1(
+        reg_flat.reshape(-1, 6), tgt["bbox_targets"].reshape(-1, 6),
+        tgt["bbox_weights"].reshape(-1, 6),
+        float(cfg_ss.get("smoothl1_beta", 1.0)), num_total_pos)
+    return {"loss_cls": loss_cls, "loss_reg": loss_reg}
+
+
+def ssd_forward_train(model, batch, cfg, anchor_sets, mark=_no_mark):
+    """SSD's training forward: ssd_loss on the head's outputs (no
+    proposals, no draws, no kernel)."""
+    means, stds = rpn_codec(cfg)
+    feats = model.extract_feat(batch["imgs"])
+    mark("backbone")
+    outs = model.rpn(feats)
+    losses = ssd_loss(
+        [o[0] for o in outs], [o[1] for o in outs], anchor_sets[0],
+        batch["gt_boxes"], batch["gt_valid"], batch["gt_labels"],
+        cfg.train_cfg["rpn"], model.num_classes, means, stds)
+    mark("targets")
+    return _total(losses), losses
+
+
+# ---------------------------------------------------------------------------
+# the RGB 2.5-D family (MaskRCNNRGB, MaskRCNNRGB2)
+# ---------------------------------------------------------------------------
+
+RGB_SUFFIXES = ("_r", "_g", "_b")
+
+
+def rgb_simple_test(model, batch, cfg, anchor_sets, mark=_no_mark):
+    """RGB 2.5-D inference (`mrcnn3d/detectors/pipeline.py`
+    rgb_simple_test; reference test_mixins_rgb.py): one feature pass of
+    the image, then per slice s its heads: proposals on the image's
+    anchors, the bbox stage, the class-wise NMS and, unless
+    test_cfg.return_bbox_only, the mask stage.  Returns dets_{r,g,b},
+    labels_*, valid_* (and mask_logits_*), and dets / labels / valid
+    copied from slice r (the reference's default picks one slice)."""
+    test_cfg = cfg.test_cfg
+    rcnn_test = test_cfg["rcnn"]
+    roi_cfg = cfg.model["bbox_roi_extractor"]
+    rpn_means, rpn_stds = rpn_codec(cfg)
+    means = tuple(cfg.model["bbox_head"]["target_means"])
+    stds = tuple(cfg.model["bbox_head"]["target_stds"])
+    imgs = batch["imgs"]
+    b = imgs.shape[0]
+    img_shape = _img_shape(imgs)
+    feats = model.extract_feat(imgs)
+    mark("backbone_fpn")
+    out = {}
+    for s, sfx in enumerate(RGB_SUFFIXES):
+        rpn_outs = model.rpn(feats, s)
+        pboxes, _, pvalid = gen_proposals(
+            [o[0] for o in rpn_outs], [o[1] for o in rpn_outs],
+            anchor_sets[0], img_shape, test_cfg["rpn"], means=rpn_means,
+            stds=rpn_stds)
+        mark(f"proposals{sfx}")
+        rois, rvalid = flat_rois(pboxes, pvalid)
+        cls_score, bbox_pred = model.bbox_forward(
+            roi_align(feats, rois, roi_cfg, rvalid), s)[:2]
+        m = pboxes.shape[1]
+        boxes = delta2bbox3d(rois[:, 1:], bbox_pred.float(), means, stds,
+                             img_shape)
+        dets, labels, dvalid, _ = multiclass_nms_3d(
+            boxes.reshape(b, m, -1),
+            torch.softmax(cls_score.float(), -1).reshape(b, m, -1),
+            rvalid.reshape(b, m), rcnn_test["score_thr"],
+            rcnn_test["nms"]["iou_thr"], rcnn_test["max_per_img"])
+        out.update({"dets" + sfx: dets, "labels" + sfx: labels,
+                    "valid" + sfx: dvalid})
+        mark(f"bbox{sfx}")
+        if model.with_mask and not test_cfg.get("return_bbox_only", False):
+            out["mask_logits" + sfx] = mask_stage(
+                model, feats, dets, dvalid, None,
+                cfg.model["mask_roi_extractor"], scale=s)
+            mark(f"mask{sfx}")
+    out.update(dets=out["dets_r"], labels=out["labels_r"],
+               valid=out["valid_r"])
+    return out
+
+
+def rgb_forward_train(model, batch, cfg, anchor_sets, draws, mark=_no_mark,
+                      offset=0):
+    """RGB 2.5-D training losses (`mrcnn3d/detectors/pipeline.py`
+    rgb_forward_train; reference two_stage_rgb.py:114-238): one feature
+    pass, then per slice s (suffix _r, _g, _b) its RPN loss, proposals,
+    R-CNN sample, bbox loss and mask loss with slice s's heads and gt
+    (gt_boxes_r, ..., gt_masks_r, ...), every slice on the image's
+    anchors.  The reference skips a slice when an image of the batch has
+    no gt of it; here that slice's losses are weighted by 0 (the global
+    batch's `all(any(gt_valid_s, 1))`), so that the draws and the
+    gradients are JAX's.  Draw sites ("rpn", s, image) and ("rcnn", s,
+    image), image the global index."""
+    train_cfg = cfg.train_cfg
+    rcnn_cfg = train_cfg["rcnn"]
+    rpn_means, rpn_stds = rpn_codec(cfg)
+    means = tuple(cfg.model["bbox_head"]["target_means"])
+    stds = tuple(cfg.model["bbox_head"]["target_stds"])
+    roi_cfg = cfg.model["bbox_roi_extractor"]
+    imgs = batch["imgs"]
+    img_shape = _img_shape(imgs)
+    feats = model.extract_feat(imgs)
+    mark("backbone_fpn")
+    losses = {}
+    for s, sfx in enumerate(RGB_SUFFIXES):
+        gtb, gtv = batch["gt_boxes" + sfx], batch["gt_valid" + sfx]
+        gtl = batch["gt_labels" + sfx]
+        w_slice = global_all(gtv.any(1))
+        rpn_outs = model.rpn(feats, s)
+        cls_outs = [o[0] for o in rpn_outs]
+        reg_outs = [o[1] for o in rpn_outs]
+        rl = rpn_loss(cls_outs, reg_outs, anchor_sets[0], gtb, gtv, draws,
+                      ("rpn", s), train_cfg["rpn"], sfx, rpn_means, rpn_stds,
+                      offset)
+        with torch.no_grad():
+            pboxes, _, pvalid = gen_proposals(
+                [c.detach() for c in cls_outs], [r.detach() for r in reg_outs],
+                anchor_sets[0], img_shape, train_cfg["rpn_proposal"],
+                means=rpn_means, stds=rpn_stds)
+        samples = _sample_batch(draws, ("rcnn", s), pboxes, pvalid, gtb, gtv,
+                                gtl, rcnn_cfg, means, stds, offset)
+        mark(f"rpn_targets{sfx}")
+        rois, rvalid = flat_rois(samples.rois, samples.roi_valid)
+        cls_score, bbox_pred = model.bbox_forward(
+            roi_align(feats, rois, roi_cfg, rvalid), s)[:2]
+        rl.update(bbox_stage_loss(cls_score, bbox_pred, samples,
+                                  model.num_classes,
+                                  rcnn_cfg.get("pos_weight", -1), sfx))
+        if model.with_mask and ("gt_masks" + sfx) in batch:
+            rl["loss_mask" + sfx] = _mask_branch_loss(
+                feats, samples, batch["gt_masks" + sfx],
+                cfg.model["mask_roi_extractor"], rcnn_cfg,
+                functools.partial(model.mask_forward, scale=s))
+        losses.update({k: w_slice * v for k, v in rl.items()})
+        mark(f"rcnn{sfx}")
     return _total(losses), losses

@@ -30,6 +30,14 @@ depth-1 volumes through ResNet3D's or ResNeXt3D's (1, k, k) mode and the
 the RPN head, the bbox heads and the refinement mask head keep their
 3x3x3 kernels, as the JAX package builds them.
 
+`ssd` is SSD (`mrcnn3d/models/detector.py:93-105`): SSD's VGG16
+backbone (`backbone.features`, `.extra`, `.l2_norm`) and SSDHead
+(`bbox_head`), no neck; its level sizes come from the VGG's own
+arithmetic.  `rgb` is the RGB 2.5-D family (reference two_stage_rgb.py):
+one RGB image of three adjacent slices through one backbone and FPN,
+with a head set per slice -- three scales' unshared heads (`rpn_head`,
+`rpn_head_2`, `rpn_head_3`, `bbox_head`, ...) over the same features.
+
 The module owns the parameters only; proposal decoding, RoIAlign, NMS
 and the stage logic live in `detectors/pipeline.py`.  Features run in
 `channels_last_3d` storage, so a level permuted to (B, D, H, W, C) is a
@@ -40,7 +48,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .backbones_extra import ResNeXt3D, UNet3D
+from .backbones_extra import ResNeXt3D, SSDVGG, UNet3D
 from .fpn3d import FPN3D
 from .heads import (
     FCNMaskHead3D,
@@ -50,6 +58,7 @@ from .heads import (
     RPNHead3D,
     SharedFCBBoxHead3D,
     SharedFCBBoxHead3DRefinement,
+    SSDHead,
 )
 from .resnet3d import ResNet3D
 
@@ -111,6 +120,10 @@ class Detector3D(nn.Module):
         semantic_fusion_level=1,
         two_d=False,
         with_cp=False,
+        ssd=False,
+        ssd_input_size=300,
+        ssd_num_anchors=(),
+        rgb=False,
     ):
         super().__init__()
         self.num_classes = num_classes
@@ -127,6 +140,13 @@ class Detector3D(nn.Module):
         self.htc = htc
         self.with_semantic = with_semantic
         self.two_d = two_d
+        self.ssd = ssd
+        self.rgb = rgb
+        if ssd:
+            self.backbone = SSDVGG(ssd_input_size)
+            self.bbox_head = SSDHead(self.backbone.out_channels,
+                                     ssd_num_anchors, num_classes, two_d)
+            return
         self.backbone = build_backbone(backbone_type, depth, base_width,
                                        two_d, with_cp)
         self.neck = FPN3D(self.backbone.out_channels, fpn_channels, num_outs)
@@ -185,11 +205,15 @@ class Detector3D(nn.Module):
     def extract_feat(self, x):
         """(B, 3, D, H, W) -> list of FPN levels (B, C, d, h, w)."""
         x = x.contiguous(memory_format=torch.channels_last_3d)
+        if self.ssd:
+            return self.backbone(x)
         return self.neck(self.backbone(x))
 
     def rpn(self, feats, scale=0):
         """Per level (cls, reg) of scale's anchor head (RetinaHead3D for
-        a single-stage model)."""
+        a single-stage model; SSD's head runs on every level at once)."""
+        if self.ssd:
+            return self.bbox_head(feats)
         if self.single_stage:
             head = self.bbox_head
         else:
@@ -232,5 +256,8 @@ class Detector3D(nn.Module):
         return out_d * fd, out * fh, out * fw
 
     def featmap_sizes(self, shape):
-        """FPN level (d, h, w) sizes for an input volume of (D, H, W)."""
+        """FPN level (d, h, w) sizes for an input volume of (D, H, W)
+        (SSD's: the VGG's output sizes)."""
+        if self.ssd:
+            return self.backbone.featmap_sizes(shape)
         return self.neck.featmap_sizes(self.backbone.featmap_sizes(shape))

@@ -19,11 +19,14 @@
   * RetinaHead3D -- reference retina_head.py lifted to 6-DoF: cls and reg
     towers of 3x3x3 convs + ReLU, then per-anchor sigmoid class logits
     and deltas.
+  * SSDHead -- reference ssd_head.py:14-47: per level one 3x3 conv to the
+    level's anchors' softmax class logits (background included) and one
+    to their deltas (`cls_convs.{i}`, `reg_convs.{i}`, mmdet's names).
 
 `two_d` (the 2-D legacy family on depth-1 maps, `mrcnn3d/models/heads.py
 :114-133, :161-189, :216-222, :307-313`): the mask, HTC mask, semantic
 and RetinaNet heads' 3x3x3 convs become (1, 3, 3) and the mask heads'
-2x upsample (1, 2, 2).  The RPN head and the bbox heads have no 2-D mode,
+2x upsample (1, 2, 2); SSD's head is (1, 3, 3) in the 2-D family.  The RPN head and the bbox heads have no 2-D mode,
 as in the JAX package: their 3x3x3 conv sees only its centre depth tap
 on a depth-1 map.
 """
@@ -213,3 +216,24 @@ class RetinaHead3D(nn.Module):
             c = cls_conv(c)
             r = reg_conv(r)
         return self.retina_cls(c), self.retina_reg(r)
+
+
+class SSDHead(nn.Module):
+    """forward(levels) -> per level (cls (B, A_l * num_classes, d, h, w)
+    softmax logits, reg (B, A_l * 6, d, h, w)); `num_anchors` lists A_l
+    per level (`mrcnn3d/models/heads.py:265-296`)."""
+
+    def __init__(self, in_channels, num_anchors=(4, 6, 6, 6, 4, 4),
+                 num_classes=2, two_d=True):
+        super().__init__()
+        k, p = conv3(two_d)
+        self.cls_convs = nn.ModuleList(
+            [nn.Conv3d(c, a * num_classes, k, padding=p)
+             for c, a in zip(in_channels, num_anchors)])
+        self.reg_convs = nn.ModuleList(
+            [nn.Conv3d(c, a * 6, k, padding=p)
+             for c, a in zip(in_channels, num_anchors)])
+
+    def forward(self, feats):
+        return [(cls(f), reg(f)) for f, cls, reg in
+                zip(feats, self.cls_convs, self.reg_convs)]

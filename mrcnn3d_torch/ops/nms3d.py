@@ -27,8 +27,9 @@ from .box3d import bbox_overlaps_3d
 launches = 0
 
 _TILE = 64
-# the scan keeps 4 removed-words per lane of one warp: 128 tiles of 64
-_MAX_ROWS = 128 * _TILE
+# the scan keeps up to 12 removed-words per lane of one warp: 384 tiles
+# of 64 (SSD512's 24,564 anchors in one segment)
+_MAX_ROWS = 384 * _TILE
 
 
 def sort_desc(x, dim=-1):
@@ -69,6 +70,22 @@ def _scan_fn():
     return fn
 
 
+def segment_table(counts):
+    """K1's segment table and mask size: (the segments' first rows, row
+    counts and mask-word offsets, laid end to end; the mask words in
+    all), each segment's words those of its tiles on or above the
+    diagonal, 64 * W * (W + 1) / 2 for W = ceil(count / 64).  Raises for
+    a segment of more than _MAX_ROWS rows."""
+    if max(counts) > _MAX_ROWS:
+        raise ValueError(f"segment of {max(counts)} boxes: at most "
+                         f"{_MAX_ROWS}")
+    tiles = [(n + _TILE - 1) // _TILE for n in counts]
+    starts = [0, *itertools.accumulate(counts)][:-1]
+    offs = [0, *itertools.accumulate(_TILE * w * (w + 1) // 2
+                                     for w in tiles)]
+    return starts + list(counts) + offs[:-1], offs[-1]
+
+
 def greedy_scan_cuda(sboxes, svalid, counts, iou_thr):
     """K1: the same scan as `greedy_scan_plain`, one launch of each of its
     two passes for every segment.  The segment table reaches the card in
@@ -89,23 +106,14 @@ def greedy_scan_cuda(sboxes, svalid, counts, iou_thr):
     dev = sboxes.device
     if total == 0:
         return torch.zeros(0, dtype=torch.bool, device=dev)
-    max_count = max(counts)
-    if max_count > _MAX_ROWS:
-        raise ValueError(f"segment of {max_count} boxes: at most {_MAX_ROWS}")
-    # per segment: first row, row count, offset of its mask words (the
-    # tiles on or above the diagonal: 64 * W * (W + 1) / 2 words)
-    tiles = [(n + _TILE - 1) // _TILE for n in counts]
-    starts = [0, *itertools.accumulate(counts)][:-1]
-    offs = [0, *itertools.accumulate(_TILE * w * (w + 1) // 2
-                                     for w in tiles)]
-    table = torch.tensor(starts + list(counts) + offs[:-1],
-                         dtype=torch.int64, pin_memory=True)
+    table, words = segment_table(counts)
+    table = torch.tensor(table, dtype=torch.int64, pin_memory=True)
     table = table.to(dev, non_blocking=True)
-    mask = torch.empty(max(offs[-1], 1), dtype=torch.int64, device=dev)
+    mask = torch.empty(max(words, 1), dtype=torch.int64, device=dev)
     keep = torch.empty(total, dtype=torch.bool, device=dev)
     status = _scan_fn()(
         sboxes.data_ptr(), svalid.data_ptr(), table.data_ptr(),
-        mask.data_ptr(), keep.data_ptr(), len(counts), max_count,
+        mask.data_ptr(), keep.data_ptr(), len(counts), max(counts),
         float(iou_thr), _cuda.stream_ptr(dev),
     )
     _cuda.check(status, "nms3d")

@@ -779,3 +779,39 @@ def test_roi_align_depth_one_levels(cuda, dtype, tol):
         assert got.shape == want.shape
         err = float((got.float().cpu() - want.float()).abs().max())
         assert err <= tol * max(1.0, float(want.float().abs().max())), err
+
+
+# ---------------------------------------------------------------------------
+# SSD300 and the RGB 2.5-D family
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("counts", [[8732], [24576], [8732, 300, 24576]])
+def test_nms_segments_past_8192_rows(cuda, counts):
+    """K1 past 128 tiles, where the scan reads its mask rows from device
+    memory: SSD300's 8732-anchor segment (137 tiles), the limit of 384
+    tiles, and both beside a short segment in one launch; softmax-like
+    scores of proposal-like boxes, keep masks equal to the plain
+    version's."""
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    boxes, scores, valid = _segments(gen, counts, cuda, False)
+    order = nms3d.segment_order(scores, valid, counts)
+    sboxes, svalid = boxes[order].contiguous(), valid[order]
+    before = nms3d.launches
+    got = nms3d.greedy_scan_cuda(sboxes, svalid, counts, 0.45)
+    assert nms3d.launches == before + 1
+    assert torch.equal(got, nms3d.greedy_scan_plain(sboxes, svalid, counts,
+                                                    0.45))
+    assert 0 < int(got.sum()) < int(valid.sum())
+
+
+@pytest.mark.parametrize("type_name", ["SSD", "MaskRCNNRGB", "MaskRCNNRGB2"])
+def test_two_d_last_small_card_vs_cpu(cuda, type_name):
+    """SSD300 (float32, 1x300x300: it has no narrower form) and the RGB
+    types at the narrow recipe, inference and a train step (max-pool and
+    relu ties replayed), on the card against the CPU, with their launches
+    a step as `chip_smoke.TWO_D_LAUNCHES` says."""
+    import chip_smoke
+
+    assert chip_smoke.TWO_D_LAST == ("SSD", "MaskRCNNRGB", "MaskRCNNRGB2")
+    assert chip_smoke.check_small_two_d(cuda, type_name)["detections"] > 0

@@ -4,10 +4,11 @@ modules included), every 3-D two-stage variant and every single-stage and
 cascade family builds and takes a CPU step and an inference without
 them, the flagship runs inference with every backbone, test-time
 augmentation, soft-NMS, RoIPool3D, VOC mAP and recall run, every 2-D type
-builds and takes a CPU step and an inference, the 2-D datasets, VOC
-tools, DCN and the reference-checkpoint loader import, SSD and the RGB
-types (not yet ported) raise naming their ROADMAP item, 11.8 (b) or (c),
-and its entry points never fall back to the CPU on their own."""
+builds and takes a CPU step and an inference, SSD300 and the RGB types
+(MaskRCNNRGB, MaskRCNNRGB2) among them, so that every type of the JAX
+package's build table builds, the 2-D datasets (CocoRGBDataset among
+them), VOC tools, DCN and the reference-checkpoint loader import, and
+its entry points never fall back to the CPU on their own."""
 import os
 import subprocess
 import sys
@@ -159,16 +160,23 @@ _SCRIPT = textwrap.dedent(
             {k: torch.from_numpy(v) for k, v in chip_smoke.two_d_inputs(
                 7, proposals=kind == "FastRCNN").items()})
         assert out["dets"].shape[-1] == 7, kind
-    for kind, item in (("SSD", "11.8 (b)"), ("MaskRCNNRGB", "11.8 (c)"),
-                       ("MaskRCNNRGB2", "11.8 (c)")):
-        vcfg = chip_smoke.small_config()
-        vcfg.model["type"] = kind
-        try:
-            build(vcfg, device="cpu")
-        except NotImplementedError as e:
-            assert f"item {item}" in str(e), e
-        else:
-            raise AssertionError(f"{kind} built")
+    from mrcnn3d_torch.detectors.build import SUPPORTED
+    assert len(SUPPORTED) == 23
+    for kind in chip_smoke.TWO_D_LAST:
+        ccfg = chip_smoke.two_d_narrow(chip_smoke.two_d_config(kind))
+        tr = build_trainer(ccfg, device="cpu")
+        tb = {k: torch.from_numpy(v) for k, v in
+              chip_smoke.two_d_train_batch(3, kind).items()}
+        losses = tr.step(tb)
+        assert all(bool(torch.isfinite(v)) for v in losses.values()), kind
+        shape = chip_smoke.two_d_shape(kind, small=True)
+        out = build(ccfg, device="cpu").simple_test(
+            {k: torch.from_numpy(v) for k, v in chip_smoke.two_d_inputs(
+                7, shape).items()})
+        assert out["dets"].shape[-1] == 7 and out["valid"].any(), kind
+        if kind in chip_smoke.TWO_D_RGB:
+            assert float(losses["loss_mask_b"]) == 0.0
+            assert {"dets_b", "mask_logits_b"} <= set(out), kind
     torch.cuda.is_available = lambda: False
     for entry in (build, build_trainer, lambda device: train_detector(
             cfg, ds, device=device)):

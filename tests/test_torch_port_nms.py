@@ -141,3 +141,16 @@ def test_multiclass_nms_matches_jax(seed, num_classes, max_num):
     np.testing.assert_array_equal(gs, ws)
     np.testing.assert_allclose(gd, wd, atol=1e-6)
     assert gv.any()
+
+
+def test_k1_segment_limit():
+    """K1 takes a segment of up to 384 tiles of 64 rows (24,576 rows:
+    SSD512's 24,564 anchors in one class's segment; SSD300's 8732), with
+    64 * W * (W + 1) / 2 mask words for W tiles, and refuses one row
+    more, as the kernel does (`csrc/nms3d.cu` kMaxTiles)."""
+    table, words = nms3d.segment_table([8732, 24576, 5])
+    assert table == [0, 8732, 33308, 8732, 24576, 5, 0, 604992, 5335872]
+    assert words == 5335872 + 64
+    with pytest.raises(ValueError, match="segment of 24577 boxes: at most "
+                                         "24576"):
+        nms3d.segment_table([3, 24577])

@@ -66,6 +66,20 @@ def forward_train_draws(rng, batch_size):
     return JaxDraws(key_of)
 
 
+def rgb_draws(rng, batch_size):
+    """JaxDraws for the RGB family's forward_train: split(rng, 6); slice
+    s's RPN uses key 2 s, its R-CNN sampling 2 s + 1; each split over the
+    images (`mrcnn3d/detectors/pipeline.py` rgb_forward_train)."""
+    rngs = jax.random.split(rng, 6)
+    root = {"rpn": lambda s: rngs[2 * s], "rcnn": lambda s: rngs[2 * s + 1]}
+
+    def key_of(site):
+        stage, s, image = site
+        return jax.random.split(root[stage](s), batch_size)[image]
+
+    return JaxDraws(key_of)
+
+
 def _boxes(rng, n, lo=0.0, hi=40.0, size=(2.0, 16.0)):
     xyz = rng.uniform(lo, hi, (n, 3))
     ext = rng.uniform(*size, (n, 3))

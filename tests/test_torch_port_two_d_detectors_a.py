@@ -53,7 +53,7 @@ from mrcnn3d_torch.entry import Flagship, build_trainer
 from mrcnn3d_torch.utils.config import Config as TConfig
 from test_torch_port_families_cascade import family_draws
 from test_torch_port_models import _randomise
-from test_torch_port_targets import forward_train_draws
+from test_torch_port_targets import forward_train_draws, rgb_draws
 
 ATOL = 2e-3
 MARGIN = 1e-5
@@ -129,9 +129,12 @@ def check_inference(type_name, seed=7):
 
 def draws_for(model, rng, batch_size):
     """JAX's key tree for the type's forward_train: the two-stage one
-    (split(rng, 8)) or the cascade's (split(rng, 2 + 2 * stages))."""
+    (split(rng, 8)), the cascade's (split(rng, 2 + 2 * stages)) or the
+    RGB family's (split(rng, 6))."""
     if model.cascade_stages:
         return family_draws(rng, batch_size, model.cascade_stages)
+    if model.rgb:
+        return rgb_draws(rng, batch_size)
     return forward_train_draws(rng, batch_size)
 
 
