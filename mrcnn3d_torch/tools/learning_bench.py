@@ -13,7 +13,8 @@ hash of the generated data (`sha256_paths`):
   * eval: the double_test protocol (pass 1 on the 1.0x val set, pass 2
     on the 1.5x twin with test_cfg2, global 0.1-IoU merge, 29-stat 3-D
     COCO summary against the 1.0x gt), the single-pass stats, a segm pass
-    from the 1.0x detections and the mask-quality oracle.
+    from the 1.0x detections, the mask-quality oracle and where its best
+    masks sit (`mask_placement`).
 
     python -m mrcnn3d_torch.tools.learning_bench [--iters 1600]
         [--workdir DIR] [--skip-train] [--train-seed N] [--json-out PATH]
@@ -156,11 +157,13 @@ def mask_quality(seg_ev):
 
 
 def evaluate_protocol(cfg, model, ann_va, dir_va, ann_va2, dir_va2,
-                      timers=None):
+                      timers=None, passes=None):
     """The double_test + segm evaluation (`tools/learning_bench.py:
     218-274`) of `model`: (stats, stats_single_pass, segm_stats,
     mask_quality), raw floats.  timers: optional dict, given each pass's
-    seconds."""
+    seconds.  passes: optional dict, given pass 1's `run_inference`
+    output ("pass1": results, infos, segms), pass 2's ("pass2": results,
+    infos) and the segm evaluator of pass 1's masks ("segm_eval")."""
     from ..apis.test_api import run_inference
     from ..data.coco3d import Coco3D2ScalesDataset
     from ..eval.coco_eval3d import CocoEval3D
@@ -208,6 +211,9 @@ def evaluate_protocol(cfg, model, ann_va, dir_va, ann_va2, dir_va2,
     timers["segm_eval_s"] = time.perf_counter() - t
     timers["detections_pass1"] = sum(len(c) for r in results1 for c in r)
     timers["detections_pass2"] = sum(len(c) for r in results2 for c in r)
+    if passes is not None:
+        passes.update(pass1=(results1, infos1, segms),
+                      pass2=(results2, infos2), segm_eval=seg_ev)
     return stats, stats_single, seg_stats, mask_quality(seg_ev)
 
 
@@ -244,6 +250,7 @@ def main(argv=None):
     from ..train import checkpoint as ckpt
     from ..utils.config import Config
     from ..utils.device import resolve_device
+    from .mask_placement import placement_rows, summarize
 
     device = resolve_device(None if args.device == "cuda" else args.device)
     # no TF32: float32 is float32
@@ -285,9 +292,10 @@ def main(argv=None):
                                     " (reused checkpoint)"), flush=True)
     if device.type == "cuda":
         torch.cuda.reset_peak_memory_stats(device)
-    timers = {}
+    timers, passes = {}, {}
     stats, stats_single, seg_stats, quality = evaluate_protocol(
-        cfg, model, ann_va, dir_va, ann_va2, dir_va2, timers)
+        cfg, model, ann_va, dir_va, ann_va2, dir_va2, timers, passes)
+    placement = summarize(placement_rows(passes["segm_eval"]))
 
     losses = stats_train.get("losses", [])
     rec = dict(
@@ -312,6 +320,7 @@ def main(argv=None):
         stats_single_pass=round_stats(stats_single),
         segm_stats=round_stats(seg_stats),
         mask_quality=quality,
+        placement=placement,
         port=dict(
             device=(torch.cuda.get_device_name(device)
                     if device.type == "cuda" else "cpu"),

@@ -815,3 +815,49 @@ def test_two_d_last_small_card_vs_cpu(cuda, type_name):
 
     assert chip_smoke.TWO_D_LAST == ("SSD", "MaskRCNNRGB", "MaskRCNNRGB2")
     assert chip_smoke.check_small_two_d(cuda, type_name)["detections"] > 0
+
+
+def test_prefetcher_every_batch_bit_equal(cuda, tmp_path):
+    """The training loader on the card (pinned copies on a side stream,
+    the consumer's stream waiting on an event), over three epochs of a
+    generated set with card work between batches and every batch freed
+    before the next: each batch bit for bit the sample a second dataset
+    from the same seed gives in the loader's order (one worker, so the
+    crops are drawn in that order).  `chip_smoke.py`'s learn phase checks
+    the first batch only; the allocator reuses memory from the second
+    on."""
+    import numpy as np
+
+    import chip_smoke
+    from mrcnn3d_torch.data.loader import Prefetcher, epoch_indices
+    from mrcnn3d_torch.data.synthetic import make_synthetic_coco3d
+    from mrcnn3d_torch.tools.learning_bench import train_dataset
+
+    cfg = chip_smoke.main_config()
+    ann, img = make_synthetic_coco3d(str(tmp_path), num_volumes=6, hw=96,
+                                     depth=16, seed=7)
+    loaded = train_dataset(cfg, ann, img, 11)
+    plain = train_dataset(cfg, ann, img, 11)
+    x = torch.randn(2048, 2048, device=cuda)
+    checked = 0
+    for epoch in range(3):
+        loader = Prefetcher(loaded, 1, epoch=epoch, seed=11, num_workers=1,
+                            device=cuda)
+        order = epoch_indices(len(plain), epoch, True, 0, 1, 11)
+        try:
+            for i, batch in zip(order, loader):
+                for _ in range(20):  # keep the card busy meanwhile
+                    x = torch.tanh(x @ x * 1e-3)
+                sample = plain[int(i)]
+                for k, v in sample.items():
+                    t = batch[k]
+                    if k.startswith("imgs"):
+                        t = t.permute(0, 2, 3, 4, 1)
+                    got = t.cpu().numpy()[0]
+                    assert got.dtype == v.dtype and np.array_equal(got, v), \
+                        (epoch, int(i), k)
+                del batch
+                checked += 1
+        finally:
+            loader.close()
+    assert checked == 3 * len(plain)

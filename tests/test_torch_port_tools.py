@@ -136,3 +136,43 @@ def test_cuda_device_flag_raises_without_a_card(tmp_path):
          "learning_bench.main(['--synthetic', '--workdir', 'wd'])"],
         cwd=tmp_path, env=env, capture_output=True, text=True, timeout=120)
     assert proc.returncode != 0 and "CUDA is not available" in proc.stderr
+
+
+@pytest.mark.parametrize("port, want", [
+    # no port seed reaches either reference: 1 of C(10, 2) orders
+    ([0.40, 0.45, 0.47, 0.48, 0.49, 0.50, 0.51, 0.55], 1 / 45),
+    # one seed between them: still p <= 0.05, systematic
+    ([0.40, 0.45, 0.47, 0.48, 0.49, 0.50, 0.51, 0.60], 2 / 45),
+    # two seeds between, or one above both: seed noise
+    ([0.40, 0.45, 0.47, 0.48, 0.49, 0.50, 0.57, 0.60], 4 / 45),
+    ([0.40, 0.45, 0.47, 0.48, 0.49, 0.50, 0.51, 0.70], 4 / 45),
+])
+def test_rank_test_of_the_seed_distribution(port, want):
+    """The exact one-sided rank-sum p of two reference runs above eight
+    port seeds (JAX's oracle means 0.559 and 0.618)."""
+    from mrcnn3d_torch.tools.learning_seeds import rank_p_value
+
+    assert rank_p_value([0.559, 0.618], port) == pytest.approx(want)
+
+
+def test_learning_seeds_smoke(tmp_path):
+    """Two seeds of the protocol (generated set, 2 iterations, narrow
+    config), each artifact with its placement record, and the summary
+    with its rank tests."""
+    cfg = tmp_path / "narrow.py"
+    cfg.write_text(NARROW.format(
+        flagship=str(REPO / "configs" / "mask_rcnn_3d_2scales.py")))
+    out = tmp_path / "out"
+    _run(tmp_path, "learning_seeds", "--seeds", "3", "4", "--iters", "2",
+         "--synthetic", "--config", str(cfg), "--out", str(out),
+         "--workroot", str(tmp_path / "work"))
+    summary = json.loads((out / "summary.json").read_text())
+    assert [r["seed"] for r in summary["rows"]] == [3, 4]
+    for r in summary["rows"]:
+        assert not r.get("missing") and r["oracle_mean"] is not None
+        assert "vol_ratio_mean" in r and "box_iou_mean" in r
+    for name in ("oracle_mean", "segm_mAP_0.5", "frac_ge_50"):
+        assert 0 < summary["rank_tests"][name]["p"] <= 1
+    rec = json.loads((out / "LEARNING_torch_3.json").read_text())
+    assert rec["step"] == 2
+    assert rec["placement"]["n_gt"] == rec["mask_quality"]["n_gt"] > 0

@@ -33,7 +33,15 @@ iteration, then a summary line:
         [--hours 1.0] [--threads N]
 
 (the generated data, about 310 MB, goes to a temporary directory; one
-iteration took 20-25 s on 8 CPU cores).
+iteration took 20-25 s on 8 CPU cores).  From a trained port state in
+place of JAX's init, at the flagship's own widths, re-anchored only (each
+step against JAX's, beside the noise baseline):
+
+    JAX_PLATFORMS=cpu python tests/test_torch_port_trajectory.py \
+        --state STATE.pt --full-width --iters 12
+
+(STATE.pt: `torch.save({"model": model.state_dict()})`, e.g. of a
+`learning_bench` checkpoint's "model"; its momentum is not carried.)
 
 The tier-1 test takes RE_ANCHORED_ITERS re-anchored iterations at a
 tiny geometry with cut budgets, and holds each head's update within
@@ -57,7 +65,8 @@ import torch  # noqa: E402
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
-from chip_smoke import small_config  # noqa: E402
+from chip_smoke import main_config, small_config  # noqa: E402
+from mrcnn3d.compat.torch_convert import convert_state_dict  # noqa: E402
 from mrcnn3d.data.coco3d import Coco3D2ScalesDataset as JDataset  # noqa
 from mrcnn3d.detectors import pipeline as jpl  # noqa: E402
 from mrcnn3d.detectors.build import anchor_cfgs as j_anchor_cfgs  # noqa
@@ -104,17 +113,21 @@ def _noisy(x, rng):
     return (x * (1 + NOISE * rng.randn(*x.shape))).astype(x.dtype)
 
 
-def _update_errors(got, want):
+def _update_errors(got, want, worst=None):
     """Per group, the largest of each parameter's update difference
     relative to that parameter's largest `want` update (updates as
-    momentum traces: the learning rate is the same on both sides)."""
+    momentum traces: the learning rate is the same on both sides).
+    worst: a dict, given per group the parameter that sets it."""
     out = dict.fromkeys(GROUPS, 0.0)
     for name, w in want.items():
         scale = float(w.abs().max())
         err = float((got[name] - w).abs().max())
         g = _group(name)
-        out[g] = max(out[g], err / scale if scale else
-                     (0.0 if err == 0 else float("inf")))
+        rel = err / scale if scale else (0.0 if err == 0 else float("inf"))
+        if rel >= out[g]:
+            out[g] = rel
+            if worst is not None:
+                worst[g] = name
     return out
 
 
@@ -135,17 +148,24 @@ class Lockstep:
     geometry: (hw, depth, train volumes) of the generated data;
     cut_budgets: `_cut_budgets` in place of the flagship's training
     budgets; free_running: also the free-running runs (the port's and the
-    noisy JAX run) and the re-anchored baseline."""
+    noisy JAX run) and the re-anchored baseline; full_width: the
+    flagship's own widths; start: a port state_dict both sides start
+    from in place of JAX's init (with the re-anchored baseline)."""
 
     def __init__(self, workdir, geometry=(lb.HW, lb.DEPTH, lb.TRAIN_VOLUMES),
-                 seed=lb.TRAIN_SEED, cut_budgets=False, free_running=True):
+                 seed=lb.TRAIN_SEED, cut_budgets=False, free_running=True,
+                 full_width=False, start=None):
         hw, depth, n = geometry
         ann, img = make_synthetic_coco3d(
             os.path.join(workdir, "train_data"), num_volumes=n, hw=hw,
             depth=depth, lesions_per_volume=lb.LESIONS,
             seed=lb.DATA_SEED_TRAIN)
-        self.tcfg = small_config()
-        self.jcfg = narrow_cfg(JConfig)
+        if full_width:
+            self.tcfg = main_config()
+            self.jcfg = JConfig.fromfile(lb.CONFIG)
+        else:
+            self.tcfg = small_config()
+            self.jcfg = narrow_cfg(JConfig)
         if cut_budgets:
             _cut_budgets(self.tcfg)
             _cut_budgets(self.jcfg)
@@ -179,6 +199,15 @@ class Lockstep:
         d, h, w = self.shapes[0]
         example = jnp.zeros((1, min(d, 8), min(h, 32), min(w, 32), 3))
         self.jstate = j_create(self.jmodel, init_rng, example, tx)
+        if start is not None:
+            # a port state (name -> tensor) in place of JAX's init, the
+            # momentum trace at zero
+            params, stats = convert_state_dict(
+                {k: v.float() for k, v in start.items()},
+                channels=self.tcfg.model["neck"]["out_channels"])
+            self.jstate = self.jstate._replace(
+                params=jax.tree.map(jnp.asarray, params),
+                batch_stats=jax.tree.map(jnp.asarray, stats))
         variables = {"params": self.jstate.params,
                      "batch_stats": self.jstate.batch_stats}
         sets = []
@@ -196,6 +225,7 @@ class Lockstep:
         zeros = jax.tree.map(np.zeros_like, init)
         self.anchored = self._port_state(init, zeros)
         self.free = self._port_state(init, zeros) if free_running else None
+        self.baseline = free_running or start is not None
         self.noisy = None
         if free_running:
             noise = np.random.RandomState(seed)
@@ -241,7 +271,7 @@ class Lockstep:
         before = _np_tree(self.jstate.params)
         trace = _np_tree(self.jstate.opt_state[2].trace)
         twin = None
-        if self.free is not None:
+        if self.baseline:
             # the re-anchored baseline: JAX's own step from its state with
             # NOISE on the parameters
             noise = np.random.RandomState(self.seed + 1 + self.it)
@@ -265,6 +295,7 @@ class Lockstep:
         got = {name: buffers[p]["momentum_buffer"]
                for name, p in self.anchored.model.named_parameters()}
         largest = dict.fromkeys(GROUPS, 0.0)
+        worst = {}
         for name, want in want_trace.items():
             g = _group(name)
             largest[g] = max(largest[g], lr * float(want.abs().max()))
@@ -274,7 +305,8 @@ class Lockstep:
                             if site[0] == "rcnn" and site[-1] == "pos"],
             loss_jax={k: float(v) for k, v in jm.items()},
             loss_port={k: float(v) for k, v in tm.items()},
-            update_rel_err=_update_errors(got, want_trace),
+            update_rel_err=_update_errors(got, want_trace, worst),
+            update_worst=worst,
             largest_update=largest)
 
         if twin is not None:
@@ -369,13 +401,26 @@ def main(argv=None):
     p.add_argument("--out", default=os.path.join(
         _REPO, "work_dirs", "trajectory", "trajectory.jsonl"))
     p.add_argument("--threads", type=int, default=None)
+    p.add_argument("--state", default=None,
+                   help="start from this port checkpoint's model state "
+                        "(a torch.save of {'model': state_dict}) instead "
+                        "of JAX's init: re-anchored steps and their noise "
+                        "baseline only")
+    p.add_argument("--full-width", action="store_true",
+                   help="the flagship at its own widths, not narrow")
     args = p.parse_args(argv)
     if args.threads:
         torch.set_num_threads(args.threads)
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     t0 = time.perf_counter()
     data = tempfile.TemporaryDirectory()
-    run = Lockstep(data.name)
+    if args.state:
+        start = torch.load(args.state, map_location="cpu",
+                           weights_only=True)["model"]
+        run = Lockstep(data.name, full_width=args.full_width, start=start,
+                       free_running=False)
+    else:
+        run = Lockstep(data.name, full_width=args.full_width)
     records = []
     with data, open(args.out, "w") as f:
         for _ in range(args.iters):
