@@ -37,6 +37,24 @@ TORCHRUN_ENV = ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
 logger = logging.getLogger("mrcnn3d_torch")
 
 
+def import_before_joining():
+    """What a process imports before it joins a process group.
+
+    `torch.distributed.nn.functional` binds the world group as its
+    functions' default argument when it is imported (torch 2.13:
+    `def broadcast(tensor, src, group=group.WORLD)`).  The first
+    `torch.optim` optimizer imports it, through `torch._dynamo` and
+    `torch.distributed._shard`: imported while a group exists, it keeps
+    that group alive past `destroy_process_group`.  The group's gloo
+    workers then run on into interpreter shutdown, and a worker still
+    dropping the tensors of the last collective takes the GIL of a
+    finalizing interpreter: the process aborts ("terminate called
+    without an active exception", SIGABRT), at random, whenever that
+    worker was slower than the main thread's way out.  Imported first,
+    its defaults hold no group."""
+    import torch.distributed.nn.functional  # noqa: F401
+
+
 def init_dist(launcher="pytorch", backend=None, device=None):
     """Joins the process group of a `torchrun` launch (reference
     mmdet/apis/env.py:13-50): rank, world and local rank from torchrun's
@@ -57,6 +75,7 @@ def init_dist(launcher="pytorch", backend=None, device=None):
         device = torch.device("cuda", int(os.environ["LOCAL_RANK"]))
         torch.cuda.set_device(device)
     backend = backend or ("nccl" if device.type == "cuda" else "gloo")
+    import_before_joining()
     dist.init_process_group(backend, init_method="env://")
     return dist.get_rank(), dist.get_world_size(), device
 

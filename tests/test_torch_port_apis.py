@@ -46,20 +46,11 @@ from mrcnn3d_torch.eval.results import results2json3d
 from mrcnn3d_torch.train import checkpoint
 from mrcnn3d_torch.train import step as step_mod
 from test_torch_port_models import jax_flagship, port_flagship
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 ATOL = PIPELINE_ATOL
 NORM = dict(mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375],
             to_rgb=True)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two intra-op threads for this module: the tier-1 run shares the
-    CPU among its workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _budgets(cfg):

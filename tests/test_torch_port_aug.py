@@ -37,6 +37,7 @@ from mrcnn3d_torch.entry import Flagship
 from mrcnn3d_torch.ops.resize3d import jax_resize
 from mrcnn3d_torch.utils.config import Config as TConfig
 from test_torch_port_models import _randomise
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 ATOL = 2e-3
 EXACT = 1e-5
@@ -45,16 +46,6 @@ SHAPE = (8, 32, 32)
 # identity, W-flip, 1.5x
 METAS = [dict(scale_factor=1.0, flip=False), dict(scale_factor=1.0, flip=True),
          dict(scale_factor=1.5, flip=False)]
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two intra-op threads for this module: the tier-1 run shares the
-    CPU among its workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def recipe(config_cls):

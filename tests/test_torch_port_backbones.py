@@ -51,20 +51,11 @@ from mrcnn3d_torch.models.detector import build_backbone
 from mrcnn3d_torch.models.resnet3d import ResNet3D
 from mrcnn3d_torch.utils.config import Config as TConfig
 from test_torch_port_models import _randomise, narrow_cfg, to_cf, to_cl
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 ATOL = 2e-3
 BUDGET = 16
 MARGIN = 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two intra-op threads for this module: the tier-1 run shares the
-    CPU among its workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 # name -> (JAX module, port module), narrow

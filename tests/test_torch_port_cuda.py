@@ -22,6 +22,7 @@ import torch
 
 from mrcnn3d_torch.ops import nms3d
 from mrcnn3d_torch.ops import roi_align3d as ra
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 

@@ -16,6 +16,7 @@ from mrcnn3d.data import random_crop3d as jcrop
 from mrcnn3d.data import synthetic as jsynthetic
 from mrcnn3d_torch.data import coco3d, loader, random_crop3d, synthetic
 from mrcnn3d_torch.data.transforms import pad_gt
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NORM = dict(mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375],

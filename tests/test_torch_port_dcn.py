@@ -24,6 +24,7 @@ from mrcnn3d_torch.ops.dcn import (
     deform_conv2d,
     deform_roi_pool,
 )
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 TOL = 1e-5
 ORACLE_TOL = 1e-4

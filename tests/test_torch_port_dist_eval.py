@@ -30,14 +30,7 @@ from mrcnn3d_torch.apis import test_api
 from mrcnn3d_torch.data.synthetic import make_synthetic_coco3d
 from mrcnn3d_torch.parallel.launch import spawn
 from test_torch_port_tools import NARROW, REPO
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 
 def _eval_cfg():

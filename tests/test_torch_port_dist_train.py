@@ -18,7 +18,6 @@ over two round differently, and a ReLU input within that rounding of 0
 takes the other branch on the other side (RetinaNet3D's seed-0 step
 has one, which moves a layer4 bias's gradient by 3% of its largest).
 """
-import os
 
 import numpy as np
 import pytest
@@ -35,13 +34,14 @@ from mrcnn3d.parallel.mesh import make_mesh as j_make_mesh
 from mrcnn3d.train.optim import make_optimizer, step_lr_schedule
 from mrcnn3d.train.step import TrainState, make_train_step
 from mrcnn3d_torch.compat.jax_weights import state_dict_from_jax
-from mrcnn3d_torch.core import reduce
 from mrcnn3d_torch.core.targets import KeyedDraws
 from mrcnn3d_torch.data.synthetic import make_synthetic_coco3d
 from mrcnn3d_torch.parallel import mesh as pmesh
 from mrcnn3d_torch.parallel.launch import spawn
 from test_torch_port_models import jax_flagship
 from test_torch_port_targets import forward_train_draws
+from torch_port_fixtures import torch_threads  # noqa: F401
+from torch_port_ranks import allreduce_rank, train_detector_rank
 
 LOSS_TOL = 2e-3
 UPDATE_TOL = 2e-3
@@ -50,16 +50,6 @@ UPDATE_TOL = 2e-3
 # the flagship's 1e-3 (a third of it in the warmup) is up to 3e-3 of the
 # update of the least-moved heads; 1e-1 puts every update far above it
 JAX_STEP_LR = 0.1
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two intra-op threads for this module: the tier-1 run shares the
-    CPU among its workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _small_budgets(cfg):
@@ -192,29 +182,8 @@ def test_local_rows_take_the_jax_layout():
         pmesh.local_rows(batch, 0, 3)
 
 
-def _allreduce_rank(rank, world):
-    """Sums of gradients of mixed sizes and dtypes over 1-KiB buckets."""
-    params = [torch.nn.Parameter(torch.zeros(n, dtype=dt))
-              for n, dt in ((300, torch.float32), (10, torch.float32),
-                            (7, torch.float64), (500, torch.float32))]
-    for i, p in enumerate(params):
-        p.grad = torch.arange(p.numel(), dtype=p.dtype) * (rank + 1) + i
-    pmesh.allreduce_grads(params, bucket_mb=1 / 1024)
-    mesh = pmesh.make_mesh2(world // 2, 2)
-    one = torch.tensor(float(rank))
-    with reduce.loss_group(mesh.data_group):
-        count = reduce.global_sum(one)
-    with reduce.loss_group(None):
-        local = reduce.global_sum(one)
-    # under 4 ranks a normalizer outside a loss group is refused
-    with pytest.raises(RuntimeError, match="outside a loss group"):
-        reduce.global_sum(one)
-    return [p.grad for p in params], float(count), mesh.depth_rank, \
-        local is one
-
-
 def test_allreduce_grads_and_global_sum(tmp_path):
-    out = spawn(_allreduce_rank, 4, workdir=str(tmp_path))
+    out = spawn(allreduce_rank, 4, workdir=str(tmp_path))
     for grads, count, depth_rank, local in out:
         assert local
         for i, g in enumerate(grads):
@@ -224,36 +193,13 @@ def test_allreduce_grads_and_global_sum(tmp_path):
         assert count == (2.0 if depth_rank == 0 else 4.0)
 
 
-def _train_detector_rank(rank, world, root):
-    """train_detector at world 2 for two iterations on the synthetic
-    set; this rank's parameters after them, and its checkpoint steps."""
-    from mrcnn3d_torch.apis.train_api import train_detector
-    from mrcnn3d_torch.data.coco3d import Coco3D2ScalesDataset
-    from mrcnn3d_torch.train import checkpoint
-
-    cfg = cs.small_train_config()
-    cfg.data["imgs_per_gpu"] = 1
-    cfg.data["workers_per_gpu"] = 0
-    tr = cfg.data["train"]
-    ds = Coco3D2ScalesDataset(
-        os.path.join(root, "data", "instances.json"),
-        os.path.join(root, "data", "volumes"),
-        img_norm_cfg=tr["img_norm_cfg"], max_gt=4,
-        extra_aug=tr["extra_aug"], seed=rank)
-    wd = os.path.join(root, "wd")
-    state = train_detector(cfg, ds, work_dir=wd, max_iters=2, mesh="auto",
-                           device="cpu")
-    return ({n: p.detach() for n, p in state.model.named_parameters()},
-            state.step, checkpoint.CheckpointManager(wd).all_steps())
-
-
 def test_train_detector_world2_keeps_replicas_equal(tmp_path):
     """Two ranks, each on its shard of the epoch: the replicas stay
     equal (one broadcast, then summed gradients), rank 0 writes the
     checkpoint every rank can read."""
     make_synthetic_coco3d(str(tmp_path / "data"), num_volumes=4, hw=96,
                           depth=12, seed=5)
-    out = spawn(_train_detector_rank, 2, (str(tmp_path),),
+    out = spawn(train_detector_rank, 2, (str(tmp_path),),
                 workdir=str(tmp_path / "spawn"))
     (p0, step0, ck0), (p1, step1, ck1) = out
     assert step0 == step1 == 2 and ck0 == ck1 == [2]

@@ -22,6 +22,7 @@ from mrcnn3d_torch.eval import coco_eval3d as coco
 from mrcnn3d_torch.eval import masks
 from mrcnn3d_torch.eval import results
 from mrcnn3d_torch.ops import box3d
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 VOL = (12, 40, 36)   # (D, H, W)
 

@@ -59,18 +59,9 @@ from test_torch_port_targets import (
     assert_deltas_match,
     forward_train_draws,
 )
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 ATOL = 2e-3
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two intra-op threads for this module: the tier-1 run shares the
-    CPU among its workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 # ---------------------------------------------------------------------------

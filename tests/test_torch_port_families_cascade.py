@@ -53,6 +53,7 @@ from mrcnn3d_torch.models.heads import SharedFCBBoxHead3D
 from mrcnn3d_torch.utils.config import Config as TConfig
 from test_torch_port_models import _randomise
 from test_torch_port_targets import JaxDraws
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 ATOL = 2e-3
 BUDGET = 16

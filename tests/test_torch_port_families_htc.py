@@ -33,6 +33,7 @@ from test_torch_port_families_cascade import (
     train_pair,
 )
 from test_torch_port_models import _randomise
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 HTC = "HybridTaskCascade3D"
 HEAD_TOL = 1e-5

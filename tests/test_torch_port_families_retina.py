@@ -33,6 +33,7 @@ from test_torch_port_families_cascade import (
 )
 from test_torch_port_models import _randomise
 from test_torch_port_targets import _boxes, _gts, _jitter
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 RETINA = "RetinaNet3D"
 STDS = (0.1, 0.1, 0.2, 0.2, 0.1, 0.1)

@@ -15,6 +15,8 @@ import sys
 import textwrap
 from pathlib import Path
 
+from torch_port_fixtures import torch_threads  # noqa: F401
+
 REPO = Path(__file__).resolve().parent.parent
 
 _SCRIPT = textwrap.dedent(

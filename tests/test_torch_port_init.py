@@ -5,7 +5,6 @@ identity.  The inference build keeps its drawn statistics."""
 import math
 
 import numpy as np
-import pytest
 import torch
 
 from mrcnn3d_torch.detectors.build import (
@@ -15,20 +14,11 @@ from mrcnn3d_torch.detectors.build import (
 )
 from mrcnn3d_torch.models.layers import FrozenBatchNorm
 from mrcnn3d_torch.utils.config import Config
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 CFG = "configs/mask_rcnn_3d_2scales.py"
 # kernels with fewer values estimate their std too loosely for 5%
 MIN_VALUES = 4096
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two intra-op threads for this module: the tier-1 run shares the
-    CPU among its workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_training_build_starts_at_flax_init():

@@ -50,6 +50,7 @@ from mrcnn3d_torch.entry import build
 from mrcnn3d_torch.models.heads import FCNMaskHead3D
 from mrcnn3d_torch.ops import nms3d, roi_align3d
 from mrcnn3d_torch.ops.losses import mask_cross_entropy
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 
 def _tie_head():

@@ -14,7 +14,6 @@ package on the CPU:
   weights, crops and replayed draws.
 """
 import numpy as np
-import pytest
 import torch
 
 import jax
@@ -35,6 +34,7 @@ from mrcnn3d_torch.detectors.pipeline import forward_train
 from mrcnn3d_torch.train.step import create_train_state
 from test_torch_port_models import narrow_cfg
 from test_torch_port_targets import _assigned, forward_train_draws
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 TRIALS = 400
 # the R-CNN sampler of the flagship config
@@ -47,16 +47,6 @@ NUM, POS_FRACTION = 512, 0.25
 GRAD_TOL = {"mask_head": 1e-4, "refinement_mask_head": 1e-4,
             "rpn_head": 1e-4, "rpn_head_2": 1e-4, "refinement_head": 1e-4,
             "bbox_head": 1e-2, "neck": 1e-2}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two intra-op threads for this module: the tier-1 run shares the
-    CPU among its workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _counts_and_inclusion(pos_inds, pos_mask, neg_mask, n):

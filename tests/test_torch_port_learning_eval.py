@@ -30,7 +30,6 @@ import sys
 
 import numpy as np
 import pytest
-import torch
 
 _TESTS = os.path.dirname(os.path.abspath(__file__))
 for _p in (os.path.dirname(_TESTS), _TESTS):
@@ -58,22 +57,13 @@ from mrcnn3d_torch.eval.masks import (
 )
 from mrcnn3d_torch.tools import learning_bench as lb
 from test_torch_port_models import jax_flagship, port_flagship
+from torch_port_fixtures import torch_threads  # noqa: E402,F401
 
 # (hw, depth, train volumes, val volumes) of the pinned generator
 TINY = (48, 16, 1, 2)
 SHARPEN = 60.0
 STATS_TOL = 1e-3
 MASK_HEADS = ("mask_head_0", "refinement_mask_head")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two intra-op threads for this module: the tier-1 run shares the
-    CPU among its workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _budgets(cfg):

@@ -60,6 +60,7 @@ from mrcnn3d_torch.models.resnet3d import ResNet3D
 from mrcnn3d_torch.ops import box3d as tbox
 from mrcnn3d_torch.utils.config import Config as TConfig
 from test_torch_port_models import _randomise, jax_flagship, narrow_cfg
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 ATOL = 2e-3

@@ -11,6 +11,7 @@ from mrcnn3d.ops import losses as jl
 from mrcnn3d.train.optim import step_lr_schedule as j_schedule
 from mrcnn3d_torch.ops import losses as tl
 from mrcnn3d_torch.train.optim import step_lr_schedule
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 TOL = 1e-6
 

@@ -25,6 +25,7 @@ from mrcnn3d_torch.detectors.build import anchor_cfgs as t_anchor_cfgs
 from mrcnn3d_torch.detectors.build import build_detector as t_build
 from mrcnn3d_torch.ops.box3d import delta2bbox3d as t_delta2bbox3d
 from mrcnn3d_torch.utils.config import Config as TConfig
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 CFG = "configs/mask_rcnn_3d_2scales.py"
 ATOL = 2e-3

@@ -18,6 +18,7 @@ from mrcnn3d.ops.nms3d import nms_3d_numpy
 from mrcnn3d.ops.nms3d_pallas import nms_3d_mask_pallas
 from mrcnn3d_torch.core.post import multiclass_nms_3d
 from mrcnn3d_torch.ops import nms3d
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 
 def _boxes(rng, k, integer=False):

@@ -28,6 +28,7 @@ from chip_smoke import compare_outputs, small_config, small_inputs, small_run
 from mrcnn3d_torch.detectors import pipeline as tpl
 from mrcnn3d_torch.entry import Flagship, build
 from test_torch_port_models import jax_flagship, port_flagship
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 ATOL = 2e-3
 

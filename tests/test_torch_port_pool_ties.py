@@ -24,6 +24,7 @@ from chip_smoke import (
 )
 from mrcnn3d_torch.models.backbones_extra import ResNeXt3D, UNet3D
 from mrcnn3d_torch.models.resnet3d import ResNet3D
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 
 class _Pooled(nn.Module):

@@ -17,6 +17,7 @@ from mrcnn3d.ops.resize3d import resize_trilinear_3d as j_resize
 from mrcnn3d_torch import native
 from mrcnn3d_torch.ops.nms3d import nms_3d_overlap_numpy
 from mrcnn3d_torch.ops.resize3d import axis_lerp_matrix, resize_trilinear_3d
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 RESIZE_TOL = 1e-5
 CASES = [

@@ -42,6 +42,7 @@ from test_torch_port_two_d_detectors_a import (
     check_one_step,
     check_training,
 )
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 HEADS = ("rpn_head", "bbox_head", "mask_head")
 

@@ -25,6 +25,7 @@ from mrcnn3d.ops.roi_align3d_pallas import roi_align_3d_pallas
 from mrcnn3d_torch.ops.roi_align3d import map_roi_levels
 from mrcnn3d_torch.ops import roi_align3d as ra
 from mrcnn3d_torch.ops.roi_align3d import multi_level_roi_align_3d
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 STRIDES = [4, 8, 16, 32]
 STRIDES_D = [2, 4, 8, 16]

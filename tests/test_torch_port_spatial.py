@@ -16,8 +16,6 @@ gloo processes spawned per test.
     1e-5 of its parameter's largest -- the check that a backbone
     gradient is not counted once per depth rank.
 """
-import types
-
 import numpy as np
 import pytest
 import torch
@@ -33,20 +31,13 @@ from mrcnn3d.parallel.spatial import spatial_extract_feat as j_spatial
 from mrcnn3d_torch.compat.jax_weights import state_dict_from_jax
 from mrcnn3d_torch.models.resnet3d import ResNet3D
 from mrcnn3d_torch.parallel.launch import spawn
-from mrcnn3d_torch.parallel.spatial import (depth_sharded,
-                                            spatial_extract_feat)
+from mrcnn3d_torch.parallel.spatial import depth_sharded
 from test_torch_port_models import _randomise
+from torch_port_fixtures import torch_threads  # noqa: F401
+from torch_port_ranks import backbone_rank
 
 ATOL = 2e-4
 TOL = 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 class _Wrapper:
@@ -73,28 +64,6 @@ def _backbone_weights(variables):
     return {k[len("backbone."):]: v for k, v in sd.items()}
 
 
-def _backbone_rank(rank, world, weights, x, width, grads):
-    """The port's ResNet3D-50 depth-sharded over the world on the whole
-    volume `x` (`spatial_extract_feat` on a model whose features are the
-    backbone's, as the JAX test's wrapper): its stage outputs and, with
-    `grads`, each parameter's gradient of sum_k <out_k, cos(out_k)> over
-    1/world, summed over the ranks (the train step's rule)."""
-    from mrcnn3d_torch.parallel.mesh import allreduce_grads
-
-    model = ResNet3D(50, width).to(x.dtype)
-    model.load_state_dict(weights)
-    outs = spatial_extract_feat(
-        types.SimpleNamespace(backbone=model, extract_feat=model))(x)
-    if not grads:
-        return [o.detach() for o in outs]
-    loss = sum((o * torch.cos(o.detach())).sum() for o in outs) / world
-    loss.backward()
-    params = list(model.parameters())
-    allreduce_grads(params)
-    return ([o.detach() for o in outs],
-            {n: p.grad for n, p in model.named_parameters()})
-
-
 def test_depth_sharded_backbone_matches_jax(tmp_path):
     # the mesh program compiles fresh: XLA:CPU aborts reloading some
     # multi-device executables, and JAX keeps a process's first decision
@@ -115,7 +84,7 @@ def test_depth_sharded_backbone_matches_jax(tmp_path):
         jax.config.update("jax_enable_compilation_cache", True)
         compilation_cache.reset_cache()
     xt = torch.from_numpy(np.moveaxis(x, -1, 1).copy())
-    out = spawn(_backbone_rank, 2,
+    out = spawn(backbone_rank, 2,
                 (_backbone_weights(variables), xt, 8, False),
                 workdir=str(tmp_path))
     for got in out:
@@ -136,7 +105,7 @@ def test_depth_sharded_backbone_world4_falls_back(tmp_path):
     loss = sum((o * torch.cos(o.detach())).sum() for o in outs)
     loss.backward()
     weights = {k: v.detach().clone() for k, v in model.state_dict().items()}
-    ranks = spawn(_backbone_rank, 4, (weights, x, 4, True),
+    ranks = spawn(backbone_rank, 4, (weights, x, 4, True),
                   workdir=str(tmp_path))
     for got, grads in ranks:
         for g, w in zip(got, outs):

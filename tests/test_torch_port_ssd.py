@@ -59,19 +59,10 @@ from mrcnn3d_torch.entry import Flagship
 from mrcnn3d_torch.models.backbones_extra import SSDVGG
 from mrcnn3d_torch.utils.config import Config as TConfig
 from test_torch_port_models import _randomise
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 ATOL = 2e-3
 MARGIN = 1e-5
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two intra-op threads for this module: the tier-1 run shares the
-    CPU among its workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _nhwc(x):

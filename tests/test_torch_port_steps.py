@@ -15,7 +15,6 @@ RPN classifier's, the mask logits') were apart, and this test failed on
 the first step.
 """
 import numpy as np
-import pytest
 import torch
 
 import jax
@@ -36,6 +35,7 @@ from mrcnn3d_torch.detectors.build import build_detector
 from mrcnn3d_torch.train.step import create_train_state, train_step
 from test_torch_port_models import narrow_cfg
 from test_torch_port_targets import forward_train_draws
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 STEPS = 4
 WARMUP = 2
@@ -47,16 +47,6 @@ TOL = 1e-5
 UPDATE_TOL = 2e-3
 HEADS = ("rpn_head", "rpn_head_2", "bbox_head", "refinement_head",
          "mask_head", "refinement_mask_head")
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two intra-op threads for this module: the tier-1 run shares the
-    CPU among its workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def _params(tree):

@@ -20,6 +20,7 @@ from mrcnn3d.core import targets as jt
 from mrcnn3d.ops.box3d import bbox2delta3d as j_bbox2delta3d
 from mrcnn3d_torch.core import targets as tt
 from mrcnn3d_torch.ops.box3d import bbox2delta3d
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 STDS = (0.1, 0.1, 0.2, 0.2, 0.1, 0.1)
 RCNN_CFG = dict(

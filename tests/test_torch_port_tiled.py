@@ -34,6 +34,7 @@ from mrcnn3d_torch.entry import Flagship, build
 from mrcnn3d_torch.eval.masks import get_seg_masks_3d, paste_mask_3d
 from mrcnn3d_torch.ops.resize3d import resize_trilinear_3d
 from test_torch_port_models import jax_flagship, port_flagship
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 ATOL = PIPELINE_ATOL
 

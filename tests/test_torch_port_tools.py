@@ -12,6 +12,8 @@ from pathlib import Path
 import numpy as np
 import pytest
 
+from torch_port_fixtures import torch_threads  # noqa: F401
+
 REPO = Path(__file__).resolve().parent.parent
 # two intra-op threads a tool: the tier-1 run shares the CPU among its
 # workers, and a tool on every core slows them all

@@ -34,6 +34,7 @@ from mrcnn3d_torch.train import checkpoint
 from mrcnn3d_torch.train.step import apply_gradients, create_train_state
 from test_torch_port_models import jax_flagship
 from test_torch_port_targets import forward_train_draws
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 ATOL = 2e-3
 MODULES = ["backbone", "neck", "rpn_head", "rpn_head_2", "bbox_head",

@@ -59,7 +59,6 @@ if _REPO not in sys.path:
     sys.path.insert(0, _REPO)
 
 import numpy as np  # noqa: E402
-import pytest  # noqa: E402
 import torch  # noqa: E402
 
 import jax  # noqa: E402
@@ -89,6 +88,7 @@ sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 from test_torch_port_models import narrow_cfg  # noqa: E402
 from test_torch_port_steps import HEADS, UPDATE_TOL  # noqa: E402
 from test_torch_port_targets import forward_train_draws  # noqa: E402
+from torch_port_fixtures import torch_threads  # noqa: E402,F401
 
 GROUPS = ("backbone", "neck") + HEADS
 # relative noise on the baseline JAX run's initial parameters
@@ -365,16 +365,6 @@ def summarise(records):
     out["iters_with_mask_positives"] = sum(
         1 for r in records if any(r["rcnn_positives"]))
     return out
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _two_threads():
-    """Two intra-op threads for this module: the tier-1 run shares the
-    CPU among its workers."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(2)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_re_anchored_updates_match_jax(tmp_path):

@@ -28,6 +28,7 @@ from mrcnn3d_torch.data import coco3d, legacy2d
 from mrcnn3d_torch.tools import voc_eval
 from mrcnn3d_torch.tools.convert_datasets import pascal_voc
 from mrcnn3d_torch.utils.config import Config as TConfig
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 NORM = dict(mean=[123.675, 116.28, 103.53], std=[58.395, 57.12, 57.375],

@@ -54,6 +54,7 @@ from mrcnn3d_torch.utils.config import Config as TConfig
 from test_torch_port_families_cascade import family_draws
 from test_torch_port_models import _randomise
 from test_torch_port_targets import forward_train_draws, rgb_draws
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 ATOL = 2e-3
 MARGIN = 1e-5

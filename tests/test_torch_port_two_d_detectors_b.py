@@ -8,6 +8,7 @@ from test_torch_port_two_d_detectors_a import (
     check_one_step,
     check_training,
 )
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 
 def test_mask_rcnn_simple_test_matches_jax():

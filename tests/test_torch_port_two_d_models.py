@@ -39,6 +39,7 @@ from mrcnn3d_torch.models.backbones_extra import ResNeXt3D
 from mrcnn3d_torch.models.resnet3d import ResNet3D
 from mrcnn3d_torch.utils.config import Config as TConfig
 from test_torch_port_models import _randomise
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 ATOL = 2e-3
 HW = (32, 32)

@@ -26,6 +26,7 @@ from test_torch_port_variants_single import (
     train_pair,
 )
 from test_torch_port_variants_three import CROP, NORM, assert_samples_equal
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 TYPE = "MaskRCNN3DParcel"
 

@@ -70,6 +70,7 @@ from mrcnn3d_torch.entry import Flagship
 from mrcnn3d_torch.utils.config import Config as TConfig
 from test_torch_port_models import _randomise, narrow_cfg
 from test_torch_port_targets import forward_train_draws
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 ATOL = 2e-3
 BUDGET = 16

@@ -15,6 +15,7 @@ from test_torch_port_variants_single import (
     check_inference,
     check_losses,
 )
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 TYPES = ("MaskRCNN3D3ScalesHeads", "MaskRCNN3D3ScalesOnePathway")
 

@@ -11,6 +11,7 @@ from test_torch_port_variants_single import (
     check_inference,
     check_losses,
 )
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 TYPES = ("MaskRCNN3D2ScalesHeads", "MaskRCNN3D2ScalesHeadsRefinementHead",
          "MaskRCNN3D2ScalesOnePathwayOneRPN")

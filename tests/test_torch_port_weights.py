@@ -19,6 +19,7 @@ from mrcnn3d_torch.compat.jax_weights import state_dict_from_jax
 from mrcnn3d_torch.detectors.build import build_detector as t_build
 from mrcnn3d_torch.utils.config import Config as TConfig
 from test_torch_port_models import narrow_cfg
+from torch_port_fixtures import torch_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")
