@@ -1,0 +1,7 @@
+"""Each scale's RPN to its proposals (K1), summed per request: CUDA
+events at the program's mark hook, the mean over the traced run's
+requests."""
+
+
+def read(run):
+    return (run.get("stage_ms") or {}).get("proposals")
